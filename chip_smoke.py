@@ -2,45 +2,74 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel from the sources in this checkout and
-drives the port's main path through its public entry points:
+Builds the hand-written CUDA kernels from the sources in this checkout (one
+nvcc per source, all started together) and drives the port's main paths
+through their public entry points:
 
-  A. the element-Jacobian kernel against its plain PyTorch version at
-     3x3 and 511x509 Q1 elements, f64 and f32, neo-Hookean and linear
-     elasticity;
+  A. the closed-entries element-Jacobian kernel against its plain PyTorch
+     version at 3x3 and 511x509 Q1 elements, f64 and f32, neo-Hookean and
+     linear elasticity;
   B. headline assembly: 512x512 Q1 quads, vdim=2, neo-Hookean, f32
      (262,144 elements) through ``ADBlockIntegrator.element_jacobians``
      with the default route, then kernel and plain timings;
   C. Newton–CG (Jacobi-preconditioned, matrix-free) on the same 512x512
      mesh in f64 with ex3's boundary conditions and a scaled load, and the
-     ex3 model at its default size.
+     ex3 model at its default size;
+  D. the generic AD element-Jacobian kernel (energies code-generated and
+     differentiated by nested dual numbers):
+     D1 against its plain PyTorch version at 3x3 and 511x509, f64 and f32,
+        for Diffusion at p1 and p2, Mass, neo-Hookean on route="kernel_ad"
+        (also against the closed-entries kernel) and a minimal-surface
+        energy defined only in this script; an energy that does not trace
+        is refused by name and the default route takes two-stage;
+     D2 main path: ex1 Poisson at 512x512 Q1 and Q2, f32, through
+        ``element_jacobians`` with the default route, and the headline
+        neo-Hookean on route="kernel_ad" (the pure-AD rate);
+     D3 kernel, plain, end-to-end and two-stage timings for each D2
+        configuration, beside each one's bound.
 
-Every phase checks its results and raises on failure.  The kernel's launch
-count is reset just before the main path (B and C) and read just after.
-The last line of output is a JSON object naming the device; the line
-before it lists the kernels with their launch counts and timings.  There
-is no CPU path: without a CUDA device the script exits with an error.
+Kernel and plain times in the kernels line are device time per call from
+torch.profiler (the kernel alone; every kernel of the plain version); the
+log also gives CUDA-event times of whole calls, host work included.
+
+Every phase checks its results and raises on failure.  Each kernel's
+launch count is reset just before its main path (B and C for the closed-
+entries kernel, D2 for the AD kernel) and read just after.  The last line
+of output is a JSON object naming the device; the line before it lists the
+kernels with their launch counts, timings and bounds.  There is no CPU
+path: without a CUDA device the script exits with an error.
 """
 
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from mfem_ad_tpu_torch import mesh as M
-from mfem_ad_tpu_torch.ad import LinearElasticityEnergy, NeoHookeanEnergy
+from mfem_ad_tpu_torch.ad import (
+    ADFunction,
+    DiffusionEnergy,
+    LinearElasticityEnergy,
+    MassEnergy,
+    NeoHookeanEnergy,
+)
 from mfem_ad_tpu_torch.adeval import ADEval
 from mfem_ad_tpu_torch.fespace import FESpace
 from mfem_ad_tpu_torch.forms import LinearForm, NonlinearForm
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator
-from mfem_ad_tpu_torch.models import elasticity
+from mfem_ad_tpu_torch.models import elasticity, poisson
+from mfem_ad_tpu_torch.ops import ad_jacobian as adj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
+from mfem_ad_tpu_torch.ops.energy_codegen import trace_energy
 from mfem_ad_tpu_torch.solvers import NewtonOptions, newton
 
 MODE = ADEval.GRAD | ADEval.VECTOR
@@ -52,6 +81,52 @@ NH_SCALE = 0.05  # body-force scale for phase C: max |grad u| ~ 0.1
 # min det F = -0.47), where log det F is NaN; 0.1/n keeps min det F near
 # 0.2 at 511x509 and 512x512.
 AMP = 0.1
+# H100 SXM published peaks (NVIDIA data sheet, at 700 W): f32 and f64
+# arithmetic outside the tensor cores, and HBM3 bandwidth
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_BYTES = 3.35e12
+
+
+class MinimalSurfaceEnergy(ADFunction):
+    """sqrt(1 + g.g) + eps g.g with a static eps, scalar-unrolled: ex2's
+    minimal-surface density, an energy the port's library does not
+    define."""
+
+    def __init__(self, eps: float = 0.05):
+        super().__init__(2)
+        self.eps = eps
+
+    def energy(self, g, p):
+        gg = g[0] * g[0] + g[1] * g[1]
+        return torch.sqrt(gg + 1.0) + self.eps * gg
+
+
+class DotEnergy(ADFunction):
+    """0.5 g.g through torch.dot: the code generator refuses it."""
+
+    def __init__(self):
+        super().__init__(2)
+
+    def energy(self, g, p):
+        return 0.5 * torch.dot(g, g)
+
+
+# D1 cases: name -> (energy factory, order, mode, vdim)
+AD_CASES = {
+    "diffusion_p1": (lambda: DiffusionEnergy(2), 1, ADEval.GRAD, 1),
+    "diffusion_p2": (lambda: DiffusionEnergy(2), 2, ADEval.GRAD, 1),
+    "mass_p1": (lambda: MassEnergy(1), 1, ADEval.VALUE, 1),
+    "neohookean_p1": (lambda: NeoHookeanEnergy(2, 1.0, 1.0), 1, MODE, 2),
+    "minimal_surface_p2": (lambda: MinimalSurfaceEnergy(), 2, ADEval.GRAD, 1),
+}
+D1_SIZES = ((3, 3), (511, 509))  # a ragged tile, and full width
+# the trace of every energy D runs: (energy, parameter sizes)
+AD_TRACES = (
+    (DiffusionEnergy(2), {}),
+    (MassEnergy(1), {}),
+    (NeoHookeanEnergy(2, 1.0, 1.0), {"lambda": 1, "mu": 1}),
+    (MinimalSurfaceEnergy(), {}),
+)
 
 
 def log(msg: str):
@@ -224,6 +299,287 @@ def phase_b_timing(intg, u, A_main):
     return err, k_ms, p_ms
 
 
+# ---------------------------------------------------------------------------
+# Build
+# ---------------------------------------------------------------------------
+
+
+def ptxas_lines(report: str) -> list[str]:
+    """One line per compiled kernel: its registers and spills."""
+    out, entry, spills = [], None, ""
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+        elif "spill stores" in ln:
+            spills = ln.strip()
+        elif "Used" in ln and "registers" in ln and entry:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out.append((entry, f"{regs} registers, {spills}"))
+    names = [e for e, _ in out]
+    cxxfilt = shutil.which("c++filt")
+    if cxxfilt and names:
+        names = subprocess.run([cxxfilt], input="\n".join(names),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    return [f"{n}: {r}" for n, (_, r) in zip(names, out)]
+
+
+def build_all():
+    """Compile every kernel source at once, one nvcc each."""
+    jobs = {"fused_jacobian.cu": fj.build_library}
+    for f, sizes in AD_TRACES:
+        code = trace_energy(f, sizes)
+        jobs[f"ad_jacobian.cuh + {type(f).__name__}"] = (
+            lambda code=code: adj.build_library(code))
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        report = fn()
+        return report, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {k: pool.submit(timed, fn) for k, fn in jobs.items()}
+        results = {k: f.result() for k, f in futures.items()}
+    log(f"build: {len(jobs)} nvcc in parallel, "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    for k, (report, sec) in results.items():
+        log(f"build {k}: {sec:.1f} s")
+        for line in ptxas_lines(report):
+            log(f"  ptxas {line}")
+
+
+# ---------------------------------------------------------------------------
+# D: the AD kernel
+# ---------------------------------------------------------------------------
+
+
+def retyped(intg, dtype):
+    """The same integrator with its tables in another type."""
+    t = {}
+    for key, val in intg.tables.items():
+        if isinstance(val, tuple):
+            t[key] = tuple(v.to(dtype) if v.is_floating_point() else v
+                           for v in val)
+        elif isinstance(val, dict):
+            t[key] = {k: v.to(dtype) for k, v in val.items()}
+        else:
+            t[key] = val.to(dtype)
+    return ADBlockIntegrator(intg.f, intg.spaces, intg.modes,
+                             device=t["w"].device, dtype=dtype, tables=t)
+
+
+def phase_d1(dev):
+    """AD kernel against its plain version, ragged and large, both types."""
+    worst = 0.0
+    for nx, ny in D1_SIZES:
+        spaces = {}
+        for name, (make, order, mode, vdim) in AD_CASES.items():
+            key = (order, vdim)
+            if key not in spaces:
+                spaces[key] = FESpace(M.make_cartesian_2d(nx, ny), order,
+                                      vdim=vdim)
+            fes = spaces[key]
+            i64 = ADBlockIntegrator(make(), [fes], [mode], device=dev,
+                                    dtype=torch.float64)
+            for dtype in (torch.float64, torch.float32):
+                intg = i64 if dtype == torch.float64 else retyped(i64, dtype)
+                why = adj.ad_kernel_route_refusal(intg)
+                if why is not None:
+                    raise AssertionError(f"{name}: AD kernel refused: {why}")
+                u = seeded(fes.ndof, AMP / max(nx, ny), 3, dtype, dev)
+                before = adj.ad_element_jacobian.launches
+                A = intg.element_jacobians([u], route="kernel_ad")
+                A_plain = adj.ad_element_jacobian_plain(
+                    intg.f, *fj.kernel_inputs(intg, [u]))
+                torch.cuda.synchronize()
+                if adj.ad_element_jacobian.launches != before + 1:
+                    raise RuntimeError("AD kernel launch was not counted")
+                nde = vdim * fes.nd
+                if (tuple(A.shape) != (nx * ny, nde, nde)
+                        or not bool(torch.isfinite(A).all())):
+                    raise AssertionError(f"{name}: bad output {A.shape}")
+                scale = float(A_plain.abs().max())
+                rel = float((A - A_plain).abs().max()) / scale
+                msg = (f"D1 {name} {str(dtype)[6:]} {nx}x{ny}: "
+                       f"|A-plain| = {rel:.3e} max|A|")
+                if name.startswith("neohookean"):
+                    A_closed = intg.element_jacobians([u], route="kernel")
+                    rc = float((A - A_closed).abs().max()) / scale
+                    msg += f", |A-closed kernel| = {rc:.3e} max|A|"
+                    rel = max(rel, rc)
+                log(f"{msg} (tol {TOL[dtype]:.0e})")
+                if not rel <= TOL[dtype]:
+                    raise AssertionError(f"{name}: AD kernel disagrees")
+                worst = max(worst, rel)
+            del i64, intg, A, A_plain
+    # an energy the code generator refuses: a named refusal, two-stage
+    fes = FESpace(M.make_cartesian_2d(3, 3), 1)
+    intg = ADBlockIntegrator(DotEnergy(), [fes], [ADEval.GRAD], device=dev,
+                             dtype=torch.float64)
+    why = adj.ad_kernel_route_refusal(intg)
+    if why is None or "torch.dot" not in why:
+        raise AssertionError(f"torch.dot energy not refused: {why}")
+    u = seeded(fes.ndof, 1.0, 4, torch.float64, dev)
+    before = adj.ad_element_jacobian.launches
+    A = intg.element_jacobians([u])
+    if adj.ad_element_jacobian.launches != before:
+        raise AssertionError("a refused energy launched the AD kernel")
+    A_two = intg.element_jacobians([u], route="two_stage")
+    if not torch.equal(A, A_two):
+        raise AssertionError("auto did not take two-stage for a refusal")
+    log(f"D1 refusal of DotEnergy: {why}; auto took two-stage")
+    log(f"phase D1 ok: worst relative error {worst:.3e}")
+
+
+def d2_configs(dev):
+    """name -> (integrator, state, route) of the D2 main path."""
+    out = {}
+    for order in (1, 2):
+        pb = poisson.build(order=order, ref_levels=5, n0=16, device=dev,
+                           dtype=torch.float32)
+        intg = pb.form.integrators[0]
+        u = seeded(pb.space.ndof, 1.0, 5, torch.float32, dev)
+        out[f"poisson_q{order}"] = (intg, u, "auto")
+    intg, u = headline_integrator(dev)
+    out["neohookean_q1_ad"] = (intg, u, "kernel_ad")
+    return out
+
+
+def phase_d2_main(configs):
+    """The AD kernel's main path: Poisson Q1/Q2 on the default route, the
+    headline neo-Hookean on the AD kernel."""
+    results = {}
+    for name, (intg, u, route) in configs.items():
+        A = intg.element_jacobians([u], route=route)
+        torch.cuda.synchronize()
+        ne = intg.tables["edof"][0].shape[0]
+        nde = intg.vdim[0] * intg.nd[0]
+        if tuple(A.shape) != (ne, nde, nde) or not bool(
+                torch.isfinite(A).all()):
+            raise AssertionError(f"{name}: bad output {tuple(A.shape)}")
+        scale = float(A.abs().max())
+        asym = float((A - A.transpose(1, 2)).abs().max()) / scale
+        if not asym <= TOL[torch.float32]:
+            raise AssertionError(f"{name}: A not symmetric ({asym:.3e})")
+        note = f"symmetric to {asym:.3e} max|A|"
+        if name.startswith("poisson"):
+            # constants are in the Laplacian's kernel: A_e 1 = 0
+            rows = float(A.sum(dim=2).abs().max()) / scale
+            if not rows <= 1e-5:
+                raise AssertionError(f"{name}: A 1 != 0 ({rows:.3e})")
+            note += f", |A 1| = {rows:.3e} max|A|"
+        results[name] = A
+        log(f"D2 {name} ({ne} elements, route {route}): "
+            f"{tuple(A.shape)} finite, {note}")
+    return results
+
+
+def bound(ne, nq, n, nde, n_params, dtype):
+    """(least ms, what bounds it) for one element-Jacobian pass: the
+    contraction and interpolation FMAs over the card's peak arithmetic
+    rate, or each operand read once and A written once over its memory
+    rate, whichever is longer.  The energy's own derivative arithmetic is
+    left out, so this is a lower bound for both kernels."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    fma = ne * (nq * n * n * nde * nde + nq * n * nde)
+    ops_ms = 2.0 * fma / PEAK_FLOPS[dtype] * 1e3
+    nbytes = elem * (ne * nde + ne * nde * nde + nq * n * nde
+                     + nq * n * n * nde * nde + nq + nq * n_params)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (
+        bytes_ms, "bytes")
+
+
+def device_profile(fn, reps: int = 10) -> list[tuple[str, float]]:
+    """Device time per call by kernel name, from torch.profiler over
+    ``reps`` calls (empty when the profiler sees no device time)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0.0)
+        if t > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
+            rows.append((ev.key, t / 1e3 / reps))
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def device_ms(fn, match: str | None = None, events_ms: float | None = None):
+    """Device time per call of the kernels whose name holds ``match`` (all
+    kernels when None), by torch.profiler over 20 calls; the CUDA-event
+    time ``events_ms`` of the whole call where the profiler sees none."""
+    rows = device_profile(fn, reps=20)
+    sel = [t for k, t in rows if match is None or match in k]
+    if sel:
+        return sum(sel)
+    log("torch.profiler shows no device time: using CUDA-event time")
+    return events_ms
+
+
+def phase_d3_timing(configs, main):
+    """AD kernel vs plain (plain, kernel, kernel, plain) and the routes end
+    to end, for each D2 configuration."""
+    rows = {}
+    for name, (intg, u, route) in configs.items():
+        ne = intg.tables["edof"][0].shape[0]
+        args = fj.kernel_inputs(intg, [u])
+        code = trace_energy(intg.f, adj.param_sizes(args[4]))
+        A_k = adj.ad_element_jacobian(intg.f, *args, code=code)
+        A_p = adj.ad_element_jacobian_plain(intg.f, *args)
+        torch.cuda.synchronize()
+        err = float((A_k - A_p).abs().max())
+        scale = float(A_p.abs().max())
+        if not err <= TOL[torch.float32] * scale:
+            raise AssertionError(f"{name}: AD kernel vs plain {err:.3e}")
+        if not torch.equal(A_k, main[name]):
+            raise AssertionError(f"{name}: repeat call differs from D2")
+        del A_k, A_p
+        p1 = cuda_ms(lambda: adj.ad_element_jacobian_plain(intg.f, *args))
+        k1 = cuda_ms(lambda: adj.ad_element_jacobian(intg.f, *args,
+                                                     code=code))
+        k2 = cuda_ms(lambda: adj.ad_element_jacobian(intg.f, *args,
+                                                     code=code))
+        p2 = cuda_ms(lambda: adj.ad_element_jacobian_plain(intg.f, *args))
+        e2e = {r: cuda_ms(lambda r=r: intg.element_jacobians([u], route=r))
+               for r in ("auto", "kernel_ad", "two_stage")}
+        b_ms, b_by = bound(ne, intg.nq, intg.n_input,
+                           intg.vdim[0] * intg.nd[0],
+                           sum(adj.param_sizes(args[4]).values()),
+                           torch.float32)
+        k_ms = device_ms(
+            lambda: adj.ad_element_jacobian(intg.f, *args, code=code),
+            "jacobian_kernel", min(k1, k2))
+        p_ms = device_ms(
+            lambda: adj.ad_element_jacobian_plain(intg.f, *args),
+            None, min(p1, p2))
+        log(f"D3 {name}: AD kernel device {k_ms:.4f} ms "
+            f"({ne / (k_ms / 1e3):.6e} elem/s), bound {b_ms:.4f} ms "
+            f"({b_by}), {b_ms / k_ms:.1%} of bound; plain device "
+            f"{p_ms:.4f} ms")
+        log(f"D3 {name} calls by CUDA events: AD kernel wrapper "
+            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+        log(f"D3 {name} element_jacobians end to end: " + ", ".join(
+            f"{r} {t:.4f} ms ({ne / (t / 1e3):.6e}/s)"
+            for r, t in e2e.items()))
+        prof = device_profile(
+            lambda: intg.element_jacobians([u], route="kernel_ad"))
+        log(f"D3 {name} kernel_ad device time per call by kernel: " + (
+            "; ".join(f"{k[:60]} {t:.4f} ms" for k, t in prof[:6])
+            or "not visible to torch.profiler"))
+        rows[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -242,11 +598,7 @@ def main() -> int:
     if torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("float32 matmul precision is not 'highest'")
 
-    t0 = time.perf_counter()
-    report = fj.build_library()
-    ptxas = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log(f"build {time.perf_counter() - t0:.1f} s: " + " | ".join(ptxas))
+    build_all()
 
     phase_a(dev)
 
@@ -265,7 +617,17 @@ def main() -> int:
 
     phase_c_breakdown(form, res.x)
     err, k_ms, p_ms = phase_b_timing(intg, u, A_main)
-    del A_main
+    b_ms, b_by = bound(intg.tables["edof"][0].shape[0], intg.nq,
+                       intg.n_input, 8, 2, torch.float32)
+    args = fj.kernel_inputs(intg, [u])
+    k_dev = device_ms(lambda: fj.fused_element_jacobian(intg.f, *args),
+                      "fused_jacobian_kernel", k_ms)
+    p_dev = device_ms(
+        lambda: fj.fused_element_jacobian_plain(intg.f, *args), None, p_ms)
+    log(f"B kernel device {k_dev:.4f} ms, plain device {p_dev:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by}), kernel at {b_ms / k_dev:.1%} of it")
+    del args
+    del A_main, form, res
 
     ex3, _ = elasticity.solve(device=dev)
     torch.cuda.synchronize()
@@ -274,6 +636,25 @@ def main() -> int:
     if not ex3.converged:
         raise AssertionError("ex3 did not converge")
 
+    phase_d1(dev)
+    configs = d2_configs(dev)
+    for name, (ci, _, route) in configs.items():
+        log(f"D2 {name}: closed-entries kernel: "
+            f"{fj.kernel_route_refusal(ci) or 'applies'}; AD kernel: "
+            f"{adj.ad_kernel_route_refusal(ci) or 'applies'}; route {route}")
+    adj.ad_element_jacobian.launches = 0
+    main_out = phase_d2_main(configs)
+    torch.cuda.synchronize()
+    ad_launches = adj.ad_element_jacobian.launches
+    if ad_launches < len(configs):
+        raise AssertionError(
+            f"the D2 main path launched the AD kernel {ad_launches} times")
+    log(f"phase D2 ok: AD kernel launches on the main path {ad_launches}")
+    rows = phase_d3_timing(configs, main_out)
+    del main_out
+    log("phase D3 ok")
+    head = rows["neohookean_q1_ad"]
+
     print(json.dumps({"kernels": [{
         "name": "fused_element_jacobian",
         "route": "cuda",
@@ -281,8 +662,23 @@ def main() -> int:
         "replaces": "mfem_ad_tpu/ops/fused_jacobian.py:80",
         "launches": launches,
         "max_abs_err": err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "ms": k_dev,
+        "plain_ms": p_dev,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,
+    }, {
+        "name": "ad_element_jacobian",
+        "route": "cuda",
+        "source": "mfem_ad_tpu_torch/csrc/ad_jacobian.cuh",
+        "replaces": "mfem_ad_tpu/ops/fused_jacobian.py:160",
+        "launches": ad_launches,
+        "max_abs_err": head["err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,16 +3,19 @@ differentiation finite-element framework.
 
 A user writes a scalar energy density at a quadrature point; the package
 gives element energies, residuals and Jacobians by AD (``torch.func``) and
-solves with matrix-free Newton–CG.  The element-Jacobian assembly has a
-hand-written CUDA kernel for Hopper (``ops.fused_jacobian``).
+solves with matrix-free Newton–CG.  The element-Jacobian assembly has two
+hand-written CUDA kernels for Hopper: closed-form Hessian entries
+(``ops.fused_jacobian``) and any energy, code-generated and differentiated
+by nested dual numbers (``ops.ad_jacobian``).
 
 Layout mirrors the JAX package: ``mesh`` ``fespace`` ``quadrature``
 ``basis`` ``geometry`` (numpy substrate), ``ad`` (energies), ``adeval``
 ``integrator`` ``forms`` (assembly), ``solvers``, ``models``, ``ops``
 (kernels), ``convert`` (tables from the JAX package's arrays).
 
-Every constructor that makes tensors takes an explicit ``device`` and
-``dtype`` (FE default ``torch.float64``).
+Every constructor that makes tensors takes a ``device`` (default
+``"cuda"``: pass ``device="cpu"`` to run on the host) and a ``dtype``
+(FE default ``torch.float64``).
 """
 
 from . import quadrature, basis, mesh, geometry, fespace  # noqa: F401

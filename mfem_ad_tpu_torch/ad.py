@@ -24,12 +24,17 @@ from .coefficients import Coefficient, as_coefficient
 
 __all__ = [
     "ADFunction",
+    "ADVectorFunction",
     "admax",
     "admin",
     "MassEnergy",
     "DiffusionEnergy",
+    "DiffEnergy",
     "LinearElasticityEnergy",
     "NeoHookeanEnergy",
+    "Lagrangian",
+    "ALFunctional",
+    "EmptyEnergy",
 ]
 
 
@@ -90,6 +95,35 @@ class ADFunction:
     def value_grad_hess(self, x, p=None):
         p = p or {}
         return self.energy(x, p), self.gradient(x, p), self.hessian(x, p)
+
+
+class ADVectorFunction:
+    """Vector point-function F: R^n -> R^m.
+
+    ``gradient`` returns the m-by-n Jacobian; ``hessian`` returns the
+    [m, n, n] stack of component Hessians (component-major).
+    """
+
+    def __init__(self, n_input: int, n_output: int, fn=None, params=None):
+        self.n_input = int(n_input)
+        self.n_output = int(n_output)
+        if fn is not None:
+            self.function = fn  # type: ignore[method-assign]
+        self.params: dict[str, Coefficient] = {}
+        for k, v in (params or {}).items():
+            self.params[k] = as_coefficient(v)
+
+    def function(self, x, p):
+        raise NotImplementedError
+
+    def __call__(self, x, p=None):
+        return self.function(torch.as_tensor(x), p or {})
+
+    def gradient(self, x, p=None):
+        return jacfwd(self.function)(torch.as_tensor(x), p or {})
+
+    def hessian(self, x, p=None):
+        return jacfwd(jacfwd(self.function))(torch.as_tensor(x), p or {})
 
 
 def _stack_rows(rows, like):
@@ -180,6 +214,19 @@ class DiffusionEnergy(ADFunction):
             return torch.diag(K)
         Km = K.reshape(d, d)
         return 0.5 * (Km + Km.T)
+
+
+class DiffEnergy(ADFunction):
+    """f(x - target) for a wrapped energy f."""
+
+    def __init__(self, base: ADFunction, target=None):
+        super().__init__(base.n_input)
+        self.base = base
+        if target is not None:
+            self.add_parameter("target", target)
+
+    def energy(self, x, p):
+        return self.base.energy(x - p["target"], p)
 
 
 class LinearElasticityEnergy(ADFunction):
@@ -349,3 +396,108 @@ class NeoHookeanEnergy(ADFunction):
         return torch.stack(
             [torch.stack(r) for r in self.hessian_closed_entries(gradu, p)]
         )
+
+
+class Lagrangian(ADFunction):
+    """f(x) + sum_i lambda_i c_i(x).
+
+    Input is [x (n_obj), lambda (n_con)].  The evaluation mode (full,
+    objective only, or one equality constraint) is a Python-level switch,
+    set once per solve.
+    """
+
+    FULL, OBJONLY = -1, -2
+
+    def __init__(self, objective: ADFunction, n_eq_con: int):
+        super().__init__(objective.n_input + n_eq_con)
+        self.objective = objective
+        self.eq_con: list[ADFunction] = []
+        self.eval_mode = self.FULL
+
+    def add_eq_constraint(self, c: ADFunction):
+        self.eq_con.append(c)
+        return self
+
+    def full_mode(self):
+        self.eval_mode = self.FULL
+
+    def objective_mode(self):
+        self.eval_mode = self.OBJONLY
+
+    def eq_constraint_mode(self, i: int):
+        assert 0 <= i < len(self.eq_con)
+        self.eval_mode = i
+
+    def energy(self, x_and_lambda, p):
+        n = self.objective.n_input
+        x = x_and_lambda[:n]
+        lam = x_and_lambda[n:]
+        if self.eval_mode >= 0:
+            return self.eq_con[self.eval_mode].energy(x, p)
+        result = self.objective.energy(x, p)
+        if self.eval_mode == self.OBJONLY:
+            return result
+        for i, c in enumerate(self.eq_con):
+            result = result + c.energy(x, p) * lam[i]
+        return result
+
+
+class ALFunctional(ADFunction):
+    """Augmented Lagrangian f + sum [lam_i c_i + (mu/2) c_i^2], with
+    c_i(x) = constraint_i(x) - rhs_i.
+
+    ``lam`` and ``penalty`` are attributes updated between solves
+    (``set_multipliers`` / ``set_penalty``).
+    """
+
+    FULLAL, OBJONLY = -1, -2
+
+    def __init__(self, objective: ADFunction):
+        super().__init__(objective.n_input)
+        self.objective = objective
+        self.eq_con: list[ADFunction] = []
+        self.eq_rhs: list[float] = []
+        self.lam = torch.zeros(0, dtype=torch.float64)
+        self.penalty = 1.0
+        self.eval_mode = self.FULLAL
+
+    def add_eq_constraint(self, c: ADFunction, target: float = 0.0):
+        self.eq_con.append(c)
+        self.eq_rhs.append(target)
+        self.lam = torch.zeros(len(self.eq_con), dtype=torch.float64)
+        return self
+
+    def set_multipliers(self, lam):
+        self.lam = torch.as_tensor(lam, dtype=torch.float64)
+
+    def set_penalty(self, mu: float):
+        self.penalty = mu
+
+    def al_mode(self):
+        self.eval_mode = self.FULLAL
+
+    def objective_mode(self):
+        self.eval_mode = self.OBJONLY
+
+    def eq_constraint_mode(self, i: int):
+        assert 0 <= i < len(self.eq_con)
+        self.eval_mode = i
+
+    def energy(self, x, p):
+        if self.eval_mode >= 0:
+            i = self.eval_mode
+            return self.eq_con[i].energy(x, p) - self.eq_rhs[i]
+        result = self.objective.energy(x, p)
+        if self.eval_mode == self.OBJONLY:
+            return result
+        for i, c in enumerate(self.eq_con):
+            cx = c.energy(x, p) - self.eq_rhs[i]
+            result = result + cx * (self.lam[i] + 0.5 * self.penalty * cx)
+        return result
+
+
+class EmptyEnergy(ADFunction):
+    """Zero energy placeholder."""
+
+    def energy(self, x, p):
+        return torch.zeros((), dtype=x.dtype, device=x.device)

@@ -27,7 +27,8 @@ from .quadrature import get_rule
 
 
 class BlockNonlinearForm:
-    def __init__(self, spaces, *, device, dtype: torch.dtype = torch.float64):
+    def __init__(self, spaces, *, device="cuda",
+                 dtype: torch.dtype = torch.float64):
         if isinstance(spaces, FESpace):
             spaces = [spaces]
         self.spaces = list(spaces)
@@ -102,7 +103,7 @@ class BlockNonlinearForm:
 class NonlinearForm(BlockNonlinearForm):
     """Single-space convenience wrapper (MFEM NonlinearForm)."""
 
-    def __init__(self, space: FESpace, *, device,
+    def __init__(self, space: FESpace, *, device="cuda",
                  dtype: torch.dtype = torch.float64):
         super().__init__([space], device=device, dtype=dtype)
 

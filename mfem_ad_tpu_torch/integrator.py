@@ -35,7 +35,7 @@ from .fespace import FESpace
 from .geometry import geom_factors
 from .quadrature import default_ad_order, get_rule
 
-ROUTES = ("auto", "kernel", "two_stage")
+ROUTES = ("auto", "kernel", "kernel_ad", "two_stage")
 
 
 def qpmap(fn, x, p: dict):
@@ -192,7 +192,8 @@ class ADBlockIntegrator(nn.Module):
         spaces: list of FESpace, one per block.
         modes: list of ADEval, one per space.
         ir_order: quadrature order (default 2*max(p)+2).
-        device, dtype: where and in which type the tables live.
+        device, dtype: where and in which type the tables live (the card
+           unless the caller asks for the CPU).
         tables: a ready tables dictionary (see ``convert.tables_from_numpy``)
            to use instead of tabulating.
         closed: use the energy's hand-derived ``gradient_closed`` /
@@ -215,7 +216,7 @@ class ADBlockIntegrator(nn.Module):
         modes,
         ir_order: int | None = None,
         *,
-        device,
+        device="cuda",
         dtype: torch.dtype = torch.float64,
         tables: dict | None = None,
         closed: bool = False,
@@ -540,12 +541,17 @@ class ADBlockIntegrator(nn.Module):
         """Dense element Jacobians A_e [ne, nde, nde] of the (0, 0) block.
 
         ``route``:
-          "kernel"     the fused element-Jacobian kernel
+          "kernel"     the closed-entries element-Jacobian kernel
                        (``ops.fused_jacobian``); raises where it does not
                        apply (see ``kernel_route_refusal``);
+          "kernel_ad"  the AD element-Jacobian kernel for any energy that
+                       traces (``ops.ad_jacobian``); raises where it does
+                       not apply (see ``ad_kernel_route_refusal``);
           "two_stage"  ``hess_state`` then ``element_matrices``;
-          "auto"       the kernel where it applies, else two-stage.
+          "auto"       the first that applies of "kernel", "kernel_ad"
+                       and "two_stage".
         """
+        from .ops import ad_jacobian as adj
         from .ops.fused_jacobian import (
             element_jacobian_via_kernel,
             kernel_route_refusal,
@@ -553,10 +559,19 @@ class ADBlockIntegrator(nn.Module):
 
         if route not in ROUTES:
             raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+        plan = None
         if route == "auto":
-            route = "two_stage" if kernel_route_refusal(self) else "kernel"
+            route = "two_stage"
+            if kernel_route_refusal(self) is None:
+                route = "kernel"
+            else:
+                plan = adj.plan_ad_kernel(self)
+                if plan[0] is None:
+                    route = "kernel_ad"
         if route == "kernel":
             return element_jacobian_via_kernel(self, ublocks)
+        if route == "kernel_ad":
+            return adj.element_jacobian_via_ad_kernel(self, ublocks, plan)
         return self.element_matrices(self.hess_state(ublocks), 0, 0)
 
     def element_matrices(self, Hq, s: int, t_: int):

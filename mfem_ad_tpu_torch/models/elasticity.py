@@ -33,7 +33,7 @@ def build(
     n0: int = 10,
     dim: int = 2,
     *,
-    device,
+    device="cuda",
     dtype: torch.dtype = torch.float64,
 ) -> Problem:
     m = (M.make_cartesian_2d(n0, n0) if dim == 2
@@ -53,7 +53,7 @@ def build(
     return Problem(mesh=m, space=fes, form=nlf, rhs=rhs)
 
 
-def solve(order: int = 1, ref_levels: int = 3, dim: int = 2, *, device,
+def solve(order: int = 1, ref_levels: int = 3, dim: int = 2, *, device="cuda",
           dtype: torch.dtype = torch.float64):
     pb = build(order, ref_levels, dim=dim, device=device, dtype=dtype)
     opts = NewtonOptions(

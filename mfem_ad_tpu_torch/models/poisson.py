@@ -36,7 +36,7 @@ class Problem:
     rhs: torch.Tensor
 
 
-def build(order: int = 1, ref_levels: int = 1, n0: int = 10, *, device,
+def build(order: int = 1, ref_levels: int = 1, n0: int = 10, *, device="cuda",
           dtype: torch.dtype = torch.float64) -> Problem:
     m = M.make_cartesian_2d(n0, n0).uniform_refine(ref_levels)
     fes = FESpace(m, order)
@@ -49,7 +49,7 @@ def build(order: int = 1, ref_levels: int = 1, n0: int = 10, *, device,
     return Problem(mesh=m, space=fes, form=nlf, rhs=rhs)
 
 
-def solve(order: int = 1, ref_levels: int = 1, n0: int = 10, *, device,
+def solve(order: int = 1, ref_levels: int = 1, n0: int = 10, *, device="cuda",
           dtype: torch.dtype = torch.float64):
     pb = build(order, ref_levels, n0, device=device, dtype=dtype)
     opts = NewtonOptions(

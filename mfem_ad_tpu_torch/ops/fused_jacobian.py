@@ -178,7 +178,9 @@ def _library():
     return lib
 
 
-def _check_operand(name, t, shape, like):
+def check_operand(name, t, shape, like):
+    """Raise ValueError unless tensor ``t`` has ``like``'s device and type,
+    the shape ``shape``, and is contiguous."""
     if t.device != like.device or t.dtype != like.dtype:
         raise ValueError(
             f"{name}: {t.dtype} on {t.device}, expected {like.dtype} on "
@@ -213,12 +215,12 @@ def fused_element_jacobian(f, ue, R, W, wq, params):
     nq = wq.shape[0]
     if _smem_bytes(nq, ue.dtype) > SMEM_LIMIT:
         raise ValueError(f"nq={nq} exceeds the kernel's shared memory")
-    _check_operand("ue", ue, (ne, nde), ue)
-    _check_operand("R", R, (nq * n, nde), ue)
-    _check_operand("W", W, (nq * n * n, nde * nde), ue)
-    _check_operand("wq", wq, (nq,), ue)
+    check_operand("ue", ue, (ne, nde), ue)
+    check_operand("R", R, (nq * n, nde), ue)
+    check_operand("W", W, (nq * n * n, nde * nde), ue)
+    check_operand("wq", wq, (nq,), ue)
     for k in ("lambda", "mu"):
-        _check_operand(k, params[k], (nq, 1), ue)
+        check_operand(k, params[k], (nq, 1), ue)
     A = torch.empty((ne, nde, nde), dtype=ue.dtype, device=ue.device)
     if ne == 0:
         return A

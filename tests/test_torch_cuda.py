@@ -1,6 +1,7 @@
-"""The CUDA element-Jacobian kernel against its plain PyTorch version, on
-the card.  Skips where there is no CUDA device.  This file imports neither
-jax nor the JAX package, so it also runs on a machine without them:
+"""The CUDA element-Jacobian kernels (closed entries, and generic AD)
+against their plain PyTorch versions, on the card.  Skips where there is
+no CUDA device.  This file imports neither jax nor the JAX package, so it
+also runs on a machine without them:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -12,10 +13,17 @@ import pytest
 import torch
 
 from mfem_ad_tpu_torch import mesh as M
-from mfem_ad_tpu_torch.ad import LinearElasticityEnergy, NeoHookeanEnergy
+from mfem_ad_tpu_torch.ad import (
+    ADFunction,
+    DiffusionEnergy,
+    LinearElasticityEnergy,
+    MassEnergy,
+    NeoHookeanEnergy,
+)
 from mfem_ad_tpu_torch.adeval import ADEval
 from mfem_ad_tpu_torch.fespace import FESpace
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator
+from mfem_ad_tpu_torch.ops import ad_jacobian as adj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
 
 pytestmark = pytest.mark.cuda
@@ -90,3 +98,113 @@ def test_wrapper_rejects_bad_operands_on_card(cuda):
                                   params)
     with pytest.raises(ValueError, match="float32"):
         fj.fused_element_jacobian(intg.f, ue.double(), R, W, w, params)
+
+
+# ---------------------------------------------------------------------------
+# The generic AD kernel
+# ---------------------------------------------------------------------------
+
+
+class _MinimalSurface(ADFunction):
+    def __init__(self):
+        super().__init__(2)
+
+    def energy(self, g, p):
+        gg = g[0] * g[0] + g[1] * g[1]
+        return torch.sqrt(gg + 1.0) + 0.05 * gg
+
+
+AD_CASES = {  # name -> (energy, order, mode, vdim)
+    "diffusion_p1": (lambda: DiffusionEnergy(2), 1, ADEval.GRAD, 1),
+    "diffusion_p2": (lambda: DiffusionEnergy(2), 2, ADEval.GRAD, 1),
+    "mass_p1": (lambda: MassEnergy(1), 1, ADEval.VALUE, 1),
+    "neohookean_p1": (lambda: NeoHookeanEnergy(2, 1.0, 1.0), 1,
+                      ADEval.GRAD | ADEval.VECTOR, 2),
+    "minimal_surface_p2": (_MinimalSurface, 2, ADEval.GRAD, 1),
+}
+
+
+def _ad_integrator(case, nx, ny, dtype, device):
+    make, order, mode, vdim = AD_CASES[case]
+    fes = FESpace(M.make_cartesian_2d(nx, ny), order, vdim=vdim)
+    intg = ADBlockIntegrator(make(), [fes], [mode], device=device,
+                             dtype=dtype)
+    rng = np.random.default_rng(6)
+    u = (0.1 / max(nx, ny)) * rng.standard_normal(fes.ndof)
+    return intg, torch.as_tensor(u, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("case", sorted(AD_CASES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nx,ny", [(3, 3), (61, 37)])
+def test_ad_kernel_matches_plain_on_card(cuda, case, dtype, nx, ny):
+    intg, u = _ad_integrator(case, nx, ny, dtype, cuda)
+    assert adj.ad_kernel_route_refusal(intg) is None
+    before = adj.ad_element_jacobian.launches
+    A = intg.element_jacobians([u], route="kernel_ad")
+    A_plain = adj.ad_element_jacobian_plain(
+        intg.f, *fj.kernel_inputs(intg, [u]))
+    torch.cuda.synchronize()
+    assert adj.ad_element_jacobian.launches == before + 1
+    nde = intg.vdim[0] * intg.nd[0]
+    assert A.shape == (nx * ny, nde, nde) and torch.isfinite(A).all()
+    scale = float(A_plain.abs().max())
+    assert float((A - A_plain).abs().max()) <= TOL[dtype] * scale
+
+
+def test_ad_kernel_matches_closed_entries_kernel(cuda):
+    intg, u = _ad_integrator("neohookean_p1", 40, 40, torch.float32, cuda)
+    A = intg.element_jacobians([u], route="kernel_ad")
+    A_closed = intg.element_jacobians([u], route="kernel")
+    scale = float(A_closed.abs().max())
+    assert float((A - A_closed).abs().max()) <= 1e-5 * scale
+
+
+def test_auto_route_takes_the_ad_kernel_for_poisson(cuda):
+    intg, u = _ad_integrator("diffusion_p2", 8, 8, torch.float32, cuda)
+    assert fj.kernel_route_refusal(intg) is not None
+    before = adj.ad_element_jacobian.launches
+    A = intg.element_jacobians([u])
+    A_two = intg.element_jacobians([u], route="two_stage")
+    torch.cuda.synchronize()
+    assert adj.ad_element_jacobian.launches == before + 1
+    assert float((A - A_two).abs().max()) <= 1e-5 * float(A_two.abs().max())
+
+
+def test_ad_refusals_on_card(cuda):
+    """A W0-only configuration and an energy that does not trace are
+    refused by name; route="kernel_ad" raises and auto takes two-stage."""
+    fes = FESpace(M.make_cartesian_3d(1, 1, 1), 2, vdim=3)
+    w0 = ADBlockIntegrator(NeoHookeanEnergy(3, 1.0, 1.0), [fes],
+                           [ADEval.GRAD | ADEval.VECTOR], device=cuda)
+    assert "W0" in adj.ad_kernel_route_refusal(w0)
+    dot = ADFunction(2, lambda x, p: torch.dot(x, x))
+    fes2 = FESpace(M.make_cartesian_2d(3, 3), 1)
+    intg = ADBlockIntegrator(dot, [fes2], [ADEval.GRAD], device=cuda)
+    assert "torch.dot" in adj.ad_kernel_route_refusal(intg)
+    u = torch.zeros(fes2.ndof, dtype=torch.float64, device=cuda)
+    before = adj.ad_element_jacobian.launches
+    with pytest.raises(ValueError, match="torch.dot"):
+        intg.element_jacobians([u], route="kernel_ad")
+    assert intg.element_jacobians([u]).shape == (9, 4, 4)
+    assert adj.ad_element_jacobian.launches == before
+
+
+def test_ad_wrapper_rejects_bad_operands_on_card(cuda):
+    intg, u = _ad_integrator("neohookean_p1", 3, 3, torch.float32, cuda)
+    ue, R, W, w, params = fj.kernel_inputs(intg, [u])
+    f = intg.f
+    before = adj.ad_element_jacobian.launches
+    with pytest.raises(ValueError, match="compiled sizes"):
+        adj.ad_element_jacobian(f, ue[:, :6].contiguous(), R, W, w, params)
+    with pytest.raises(ValueError, match="shape"):
+        adj.ad_element_jacobian(f, ue, R[:-1].contiguous(), W, w, params)
+    with pytest.raises(ValueError, match="contiguous"):
+        adj.ad_element_jacobian(f, ue.T.contiguous().T, R, W, w, params)
+    with pytest.raises(ValueError, match="float32"):
+        adj.ad_element_jacobian(f, ue, R.double(), W, w, params)
+    with pytest.raises(ValueError, match="lambda"):
+        adj.ad_element_jacobian(f, ue, R, W, w, {"mu": params["mu"]})
+    with pytest.raises(ValueError, match="dtype"):
+        adj.ad_element_jacobian(f, ue.half(), R, W, w, params)
+    assert adj.ad_element_jacobian.launches == before
