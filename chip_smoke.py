@@ -26,7 +26,18 @@ through their public entry points:
         ``element_jacobians`` with the default route, and the headline
         neo-Hookean on route="kernel_ad" (the pure-AD rate);
      D3 kernel, plain, end-to-end and two-stage timings for each D2
-        configuration, beside each one's bound.
+        configuration, beside each one's bound;
+  E. the blocked-W0 element-Jacobian kernel (closed entries code-generated,
+     contracted per vdim-block pair with W0; 2D p>=2 and 3D):
+     E1 against its plain PyTorch version in f64 and f32, neo-Hookean and
+        linear elasticity, at 2D p2 3x3 and 511x509, 2D p3 3x3, 3D p1 3^3
+        and 63x64x65, 3D p2 3x2x2 and 3D p3 2^3 (the small ones also
+        against the two-stage route), with min det F > 0.2 asserted;
+     E2 main path: 2D p2 neo-Hookean 512x512, 3D p1 neo-Hookean 64^3 and
+        ex3's 3D p2 linear elasticity at 32^3 (``models.elasticity``), f32,
+        through ``element_jacobians`` with the default route;
+     E3 kernel, plain, two-stage and bound for each E2 configuration, and
+        cuBLAS's time for the contraction GEMM alone as a yardstick.
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
@@ -36,7 +47,8 @@ Every phase checks its results and raises on failure.  Each kernel's
 launch count is reset just before its main path (B and C for the closed-
 entries kernel, D2 for the AD kernel) and read just after.  The last line
 of output is a JSON object naming the device; the line before it lists the
-kernels with their launch counts, timings and bounds.  There is no CPU
+kernels with their launch counts, timings and bounds.  Phase E's launch
+count is reset just before E2 and read just after.  There is no CPU
 path: without a CUDA device the script exits with an error.
 """
 
@@ -68,6 +80,7 @@ from mfem_ad_tpu_torch.forms import LinearForm, NonlinearForm
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator
 from mfem_ad_tpu_torch.models import elasticity, poisson
 from mfem_ad_tpu_torch.ops import ad_jacobian as adj
+from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
 from mfem_ad_tpu_torch.ops.energy_codegen import trace_energy
 from mfem_ad_tpu_torch.solvers import NewtonOptions, newton
@@ -81,6 +94,10 @@ NH_SCALE = 0.05  # body-force scale for phase C: max |grad u| ~ 0.1
 # min det F = -0.47), where log det F is NaN; 0.1/n keeps min det F near
 # 0.2 at 511x509 and 512x512.
 AMP = 0.1
+# Phase E's states: at 0.1/n, neo-Hookean at p>=2 has det F <= 0 at some
+# points (3D p2 on 2^3: min det F = -0.07); 0.01/n keeps it above 0.6 at
+# every E shape, and phase E1 asserts it for every neo-Hookean input.
+AMP_BLOCKED = 0.01
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): f32 and f64
 # arithmetic outside the tensor cores, and HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
@@ -332,6 +349,10 @@ def build_all():
         code = trace_energy(f, sizes)
         jobs[f"ad_jacobian.cuh + {type(f).__name__}"] = (
             lambda code=code: adj.build_library(code))
+    for f in BLOCKED_ENERGIES:
+        code = bj.entries_code(f, {"lambda": 1, "mu": 1})
+        jobs[f"blocked_jacobian.cuh + {type(f).__name__}({f.dim})"] = (
+            lambda code=code, d=f.dim: bj.build_library(code, d, d))
 
     def timed(fn):
         t0 = time.perf_counter()
@@ -580,6 +601,205 @@ def phase_d3_timing(configs, main):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# E: the blocked-W0 kernel
+# ---------------------------------------------------------------------------
+
+BLOCKED_ENERGIES = (
+    NeoHookeanEnergy(2, 1.0, 1.0), NeoHookeanEnergy(3, 1.0, 1.0),
+    LinearElasticityEnergy(2, 1.0, 1.0), LinearElasticityEnergy(3, 1.0, 1.0),
+)
+# E1 shapes: (dim, order, mesh dims, also against two-stage)
+E1_CASES = (
+    (2, 2, (3, 3), True), (2, 2, (511, 509), False), (2, 3, (3, 3), True),
+    (3, 1, (3, 3, 3), True), (3, 1, (63, 64, 65), False),
+    (3, 2, (3, 2, 2), True), (3, 3, (2, 2, 2), True),
+)
+
+
+def vector_integrator(energy, dim, order, dims, dtype, dev, seed):
+    """A GRAD|VECTOR integrator on a structured mesh and a seeded state
+    u = AMP_BLOCKED/n N(0, 1)."""
+    m = M.make_cartesian_2d(*dims) if dim == 2 else M.make_cartesian_3d(
+        *dims)
+    fes = FESpace(m, order, vdim=dim)
+    intg = ADBlockIntegrator(energy(dim, 1.0, 1.0), [fes], [MODE],
+                             device=dev, dtype=dtype)
+    return intg, seeded(fes.ndof, AMP_BLOCKED / max(dims), seed, dtype, dev)
+
+
+def min_det_f(intg, u) -> float:
+    d = intg.sd[0]
+    g = intg.x_qp([u])
+    F = torch.eye(d, dtype=g.dtype, device=g.device) + g.reshape(
+        *g.shape[:2], d, d)
+    return float(torch.linalg.det(F.double()).min())
+
+
+def phase_e1(dev):
+    """Blocked kernel against its plain version (and, small, two-stage)."""
+    worst = 0.0
+    for dim, order, dims, small in E1_CASES:
+        for energy in (NeoHookeanEnergy, LinearElasticityEnergy):
+            for dtype in (torch.float64, torch.float32):
+                intg, u = vector_integrator(energy, dim, order, dims, dtype,
+                                            dev, 7)
+                why = fj.kernel_route_refusal(intg)
+                if why is not None or not fj.uses_blocked_kernel(intg):
+                    raise AssertionError(f"E1 blocked kernel refused: {why}")
+                tag = (f"E1 {energy.__name__} {dim}D p{order} "
+                       f"{'x'.join(map(str, dims))} {str(dtype)[6:]}")
+                if energy is NeoHookeanEnergy:
+                    det = min_det_f(intg, u)
+                    log(f"{tag}: min det F {det:.4f}")
+                    if not det > 0.2:
+                        raise AssertionError(f"{tag}: min det F {det}")
+                before = bj.blocked_element_jacobian.launches
+                A = intg.element_jacobians([u], route="kernel")
+                A_plain = bj.blocked_element_jacobian_plain(
+                    intg.f, *bj.blocked_inputs(intg, [u]), dim, dim)
+                torch.cuda.synchronize()
+                if bj.blocked_element_jacobian.launches != before + 1:
+                    raise RuntimeError("blocked kernel launch not counted")
+                nde = dim * intg.nd[0]
+                ne = intg.tables["edof"][0].shape[0]
+                if (tuple(A.shape) != (ne, nde, nde)
+                        or not bool(torch.isfinite(A).all())):
+                    raise AssertionError(f"{tag}: bad output {A.shape}")
+                scale = float(A_plain.abs().max())
+                rel = float((A - A_plain).abs().max()) / scale
+                msg = f"{tag}: |A-plain| = {rel:.3e} max|A|"
+                if small:
+                    A_two = intg.element_jacobians([u], route="two_stage")
+                    rt = float((A - A_two).abs().max()) / scale
+                    msg += f", |A-two-stage| = {rt:.3e} max|A|"
+                    rel = max(rel, rt)
+                log(f"{msg} (tol {TOL[dtype]:.0e})")
+                if not rel <= TOL[dtype]:
+                    raise AssertionError(f"{tag}: blocked kernel disagrees")
+                worst = max(worst, rel)
+                del intg, u, A, A_plain
+    log(f"phase E1 ok: worst relative error {worst:.3e}")
+
+
+def e2_configs(dev):
+    """name -> (integrator, state) of the E2 main path, f32."""
+    out = {}
+    fes = FESpace(M.make_cartesian_2d(HEADLINE_N, HEADLINE_N), 2, vdim=2)
+    intg = ADBlockIntegrator(NeoHookeanEnergy(2, 1.0, 1.0), [fes], [MODE],
+                             device=dev, dtype=torch.float32)
+    out["neohookean_2d_p2"] = (intg, seeded(
+        fes.ndof, AMP_BLOCKED / HEADLINE_N, 8, torch.float32, dev))
+    out["neohookean_3d_p1"] = vector_integrator(
+        NeoHookeanEnergy, 3, 1, (64, 64, 64), torch.float32, dev, 9)
+    pb = elasticity.build(order=2, dim=3, n0=4, ref_levels=3, device=dev,
+                          dtype=torch.float32)
+    out["elasticity_3d_p2"] = (pb.form.integrators[0], seeded(
+        pb.space.ndof, AMP_BLOCKED / 32, 10, torch.float32, dev))
+    return out
+
+
+def phase_e2_main(configs):
+    """The blocked kernel's main path: each configuration through
+    ``element_jacobians`` on the default route."""
+    results = {}
+    for name, (intg, u) in configs.items():
+        A = intg.element_jacobians([u])
+        torch.cuda.synchronize()
+        ne = intg.tables["edof"][0].shape[0]
+        nde = intg.vdim[0] * intg.nd[0]
+        if tuple(A.shape) != (ne, nde, nde) or not bool(
+                torch.isfinite(A).all()):
+            raise AssertionError(f"{name}: bad output {tuple(A.shape)}")
+        scale = float(A.abs().max())
+        asym = float((A - A.transpose(1, 2)).abs().max()) / scale
+        if not asym <= TOL[torch.float32]:
+            raise AssertionError(f"{name}: A not symmetric ({asym:.3e})")
+        results[name] = A
+        log(f"E2 {name} ({ne} elements, nde {nde}): {tuple(A.shape)} "
+            f"finite, symmetric to {asym:.3e} max|A|")
+    return results
+
+
+def blocked_bound(ne, nq, vdim, sd, nd, n_params, dtype):
+    """(least ms, what bounds it) for one blocked-W0 pass: the contraction
+    (vdim^2 nd^2 nq sd^2) and interpolation from B0 (nq vdim sd nd) FMAs
+    per element over the card's peak arithmetic rate, or each operand read
+    once and A written once over its memory rate, whichever is longer.
+    The entries' own arithmetic is left out, so this is a lower bound."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    nde = vdim * nd
+    fma = ne * (vdim * vdim * nd * nd * nq * sd * sd + nq * vdim * sd * nd)
+    ops_ms = 2.0 * fma / PEAK_FLOPS[dtype] * 1e3
+    nbytes = elem * (ne * nde + ne * nde * nde + nq * nd * sd
+                     + nq * sd * sd * nd * nd + nq + nq * n_params)
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (
+        bytes_ms, "bytes")
+
+
+def phase_e3_timing(configs, main):
+    """Blocked kernel vs plain (plain, kernel, kernel, plain), two-stage
+    end to end, the bound and cuBLAS's contraction GEMM, per E2 config."""
+    rows = {}
+    for name, (intg, u) in configs.items():
+        ne = intg.tables["edof"][0].shape[0]
+        vdim, sd, nd, nq = intg.vdim[0], intg.sd[0], intg.nd[0], intg.nq
+        args = bj.blocked_inputs(intg, [u])
+
+        def kernel():
+            return bj.blocked_element_jacobian(intg.f, *args, vdim, sd)
+
+        def plain():
+            return bj.blocked_element_jacobian_plain(intg.f, *args, vdim, sd)
+
+        A_k, A_p = kernel(), plain()
+        torch.cuda.synchronize()
+        err = float((A_k - A_p).abs().max())
+        scale = float(A_p.abs().max())
+        if not err <= TOL[torch.float32] * scale:
+            raise AssertionError(f"{name}: blocked kernel vs plain {err:.3e}")
+        if not torch.equal(A_k, main[name]):
+            raise AssertionError(f"{name}: repeat call differs from E2")
+        del A_k, A_p
+        reps = 5 if nd < 27 else 3
+        p1 = cuda_ms(plain, reps=reps, warmup=1)
+        k1 = cuda_ms(kernel)
+        k2 = cuda_ms(kernel)
+        p2 = cuda_ms(plain, reps=reps, warmup=1)
+        two = cuda_ms(lambda: intg.element_jacobians([u], route="two_stage"),
+                      reps=reps, warmup=1)
+        auto = cuda_ms(lambda: intg.element_jacobians([u]))
+        b_ms, b_by = blocked_bound(ne, nq, vdim, sd, nd,
+                                   sum(adj.param_sizes(args[4]).values()),
+                                   torch.float32)
+        k_ms = device_ms(kernel, "blocked_kernel", min(k1, k2))
+        p_ms = device_ms(plain, None, min(p1, p2))
+        # cuBLAS's time for the contraction alone, [ne vdim^2, nq sd^2] @
+        # [nq sd^2, nd^2] in f32 at highest precision: a yardstick only
+        Hk = seeded(ne * vdim * vdim * nq * sd * sd, 1.0, 11, torch.float32,
+                    u.device).reshape(ne * vdim * vdim, nq * sd * sd)
+        Wk = args[2]
+        lib_ms = cuda_ms(lambda: Hk @ Wk)
+        del Hk
+        log(f"E3 {name}: blocked kernel device {k_ms:.4f} ms "
+            f"({ne / (k_ms / 1e3):.6e} elem/s), bound {b_ms:.4f} ms "
+            f"({b_by}), {b_ms / k_ms:.1%} of bound; plain device "
+            f"{p_ms:.4f} ms; cuBLAS contraction GEMM {lib_ms:.4f} ms")
+        log(f"E3 {name} calls by CUDA events: blocked kernel wrapper "
+            f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
+        log(f"E3 {name} element_jacobians end to end: auto {auto:.4f} ms "
+            f"({ne / (auto / 1e3):.6e}/s), two_stage {two:.4f} ms "
+            f"({ne / (two / 1e3):.6e}/s)")
+        prof = device_profile(lambda: intg.element_jacobians([u]))
+        log(f"E3 {name} auto device time per call by kernel: " + (
+            "; ".join(f"{k[:60]} {t:.4f} ms" for k, t in prof[:6])
+            or "not visible to torch.profiler"))
+        rows[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms)
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -655,6 +875,27 @@ def main() -> int:
     log("phase D3 ok")
     head = rows["neohookean_q1_ad"]
 
+    phase_e1(dev)
+    e_configs = e2_configs(dev)
+    for name, (ci, _) in e_configs.items():
+        log(f"E2 {name}: closed-entries kernel: "
+            f"{fj.kernel_route_refusal(ci) or 'applies'}, blocked-W0: "
+            f"{fj.uses_blocked_kernel(ci)}")
+    bj.blocked_element_jacobian.launches = 0
+    e_main = phase_e2_main(e_configs)
+    torch.cuda.synchronize()
+    bj_launches = bj.blocked_element_jacobian.launches
+    if bj_launches < len(e_configs):
+        raise AssertionError(
+            f"the E2 main path launched the blocked kernel {bj_launches} "
+            "times")
+    log(f"phase E2 ok: blocked kernel launches on the main path "
+        f"{bj_launches}")
+    e_rows = phase_e3_timing(e_configs, e_main)
+    del e_main, e_configs
+    log("phase E3 ok")
+    blk = e_rows["neohookean_3d_p1"]
+
     print(json.dumps({"kernels": [{
         "name": "fused_element_jacobian",
         "route": "cuda",
@@ -679,6 +920,18 @@ def main() -> int:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "blocked_element_jacobian",
+        "route": "cuda",
+        "source": "mfem_ad_tpu_torch/csrc/blocked_jacobian.cuh",
+        "replaces": "mfem_ad_tpu/ops/fused_jacobian.py:119",
+        "launches": bj_launches,
+        "max_abs_err": blk["err"],
+        "ms": blk["ms"],
+        "plain_ms": blk["plain_ms"],
+        "bound_ms": blk["bound_ms"],
+        "bound_by": blk["bound_by"],
+        "library_ms": blk["library_ms"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -541,9 +541,12 @@ class ADBlockIntegrator(nn.Module):
         """Dense element Jacobians A_e [ne, nde, nde] of the (0, 0) block.
 
         ``route``:
-          "kernel"     the closed-entries element-Jacobian kernel
-                       (``ops.fused_jacobian``); raises where it does not
-                       apply (see ``kernel_route_refusal``);
+          "kernel"     the closed-entries element-Jacobian kernel: the
+                       blocked-W0 kernel (``ops.blocked_jacobian``) where
+                       W0 is installed and the input is pure GRAD|VECTOR,
+                       else the full-W kernel (``ops.fused_jacobian``);
+                       raises where it does not apply (see
+                       ``kernel_route_refusal``);
           "kernel_ad"  the AD element-Jacobian kernel for any energy that
                        traces (``ops.ad_jacobian``); raises where it does
                        not apply (see ``ad_kernel_route_refusal``);

@@ -11,9 +11,9 @@ integrator with a full contraction factor W
 
 ``ops/energy_codegen.py`` turns ``f.energy`` into straight-line C++; this
 module writes it into a small ``.cu`` beside ``csrc/ad_jacobian.cuh`` (the
-nested duals and the kernel template), compiles it with ``nvcc`` for
+nested duals and the kernel template), which ``ops/nvcc.py`` compiles for
 sm_90a into ``mfem_ad_tpu_torch/_build/`` under a name that hashes the
-generated source, the header and the flags, and binds it through
+generated source, the header and the flags, and binds through
 ``ctypes``.  The plain PyTorch version (``ad_element_jacobian_plain``)
 computes H with ``torch.func`` and contracts it with one GEMM.
 ``ad_element_jacobian`` runs the plain version for tensors on the CPU and
@@ -23,16 +23,12 @@ the kernel for tensors on a CUDA device.
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
 
 import torch
 from torch.func import grad, jacfwd
 
 from ..integrator import qpmap
+from . import nvcc
 from .energy_codegen import EnergyCode, UnsupportedEnergy, trace_energy
 from .fused_jacobian import (
     SMEM_LIMIT,
@@ -41,14 +37,7 @@ from .fused_jacobian import (
     supports_fused,
 )
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(_PKG, "csrc")
-HEADER = os.path.join(CSRC, "ad_jacobian.cuh")
-BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
-]
+HEADERS = ("ad_jacobian.cuh",)
 
 # (n, nde) the kernel is compiled for: per-qp input width and element
 # dofs.  Scalar Q1/Q2 in 2D with VALUE (n=1) or GRAD (n=2), scalar Q1 in
@@ -99,70 +88,28 @@ def kernel_source(code: EnergyCode) -> str:
     return "\n".join(lines)
 
 
-@functools.lru_cache(maxsize=None)
-def _header() -> bytes:
-    with open(HEADER, "rb") as fh:
-        return fh.read()
-
-
 def library_path(code: EnergyCode) -> str:
     """Where the energy's compiled kernel lives: the name hashes the
     generated source, the header and the compiler flags."""
-    h = hashlib.sha256()
-    h.update(kernel_source(code).encode())
-    h.update(_header())
-    h.update(" ".join(NVCC_FLAGS[:-2]).encode())
-    return os.path.join(BUILD_DIR, f"libad_jacobian_{h.hexdigest()[:20]}.so")
+    return nvcc.library_path("ad_jacobian", kernel_source(code), HEADERS)
 
 
 def build_library(code: EnergyCode) -> str:
     """Compile the energy's kernel when its library is missing; returns the
     compiler's report (empty when the library already exists).  Raises
     when nvcc is missing or fails."""
-    lib = library_path(code)
-    if os.path.exists(lib):
-        return ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the AD kernel cannot be built")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    stem = f"{lib[:-3]}.{os.getpid()}"
-    src = f"{stem}.cu"
-    with open(src, "w") as fh:
-        fh.write(kernel_source(code))
-    tmp = f"{stem}.tmp"
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        for leftover in (src, tmp):
-            if os.path.exists(leftover):
-                os.remove(leftover)
-    return proc.stdout + proc.stderr
+    return nvcc.build_library("ad_jacobian", kernel_source(code), HEADERS)
 
 
-_LIBRARIES: dict[str, ctypes.CDLL] = {}  # kernel source -> its library
+_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _library(code: EnergyCode):
-    """The energy's loaded library, built at its first use: no file is
-    touched on later calls."""
-    src = kernel_source(code)
-    lib = _LIBRARIES.get(src)
-    if lib is None:
-        build_library(code)
-        lib = ctypes.CDLL(library_path(code))
-        for name in ("adj_launch_f32", "adj_launch_f64"):
-            fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 5 + [
-                ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-        _LIBRARIES[src] = lib
-    return lib
+    """The energy's loaded library, built at its first use."""
+    return nvcc.load_library(
+        "ad_jacobian", kernel_source(code), HEADERS,
+        {"adj_launch_f32": _ARGTYPES, "adj_launch_f64": _ARGTYPES})
 
 
 def smem_bytes(n: int, nde: int, nq: int, n_params: int, dtype) -> int:
@@ -275,7 +222,7 @@ def plan_ad_kernel(intg):
         return "tables do not admit a fused kernel (supports_fused)", None
     if "0_0" not in t["W"]:
         return ("no full W factor: blocked-W0 configurations take the "
-                "two-stage route"), None
+                "blocked-W0 kernel or two-stage"), None
     n, nde = intg.n_input, intg.vdim[0] * intg.nd[0]
     if (n, nde) not in KERNEL_SIZES:
         return (f"(n, nde) = ({n}, {nde}) is not among the compiled sizes "

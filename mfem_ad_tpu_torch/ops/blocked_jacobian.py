@@ -1,0 +1,247 @@
+"""Blocked-W0 element-Jacobian assembly: x from B0, closed-form Hessian
+entries, and the contraction with W0 = b0 (x) b0 per vdim-block pair, in one
+hand-written CUDA kernel.
+
+Replaces the TPU kernel
+``mfem_ad_tpu/ops/fused_jacobian.py:_kernel_tile_blocked``.  For every
+element e of a structured single-space integrator whose energy has
+``hessian_closed_entries`` and whose input is pure GRAD|VECTOR
+(n = vdim*sd), where the integrator installs ``W0["0_0"]`` (2D p>=2 and
+every 3D configuration):
+
+    A_e[v*nd+i, w*nd+j] = sum_q w_q sum_{a,b} W0[(q,a,b),(i,j)]
+                          H_{(v,a),(w,b)}(x_q),
+    x_q[v*sd+a]         = sum_i B0[q,i,a] ue_e[v*nd+i].
+
+W0 is vdim^2 times smaller than the full factor W = Bf (x) Bf, and it is
+the only factor the integrator installs at 3D p>=2.
+
+``ops/energy_codegen.trace_entries`` turns the energy's closed entries into
+straight-line C++; this module writes it into a small ``.cu`` beside
+``csrc/blocked_jacobian.cuh`` (the kernel template), which ``ops/nvcc.py``
+compiles for sm_90a into ``mfem_ad_tpu_torch/_build/`` and binds through
+``ctypes``.  The plain PyTorch version (``blocked_element_jacobian_plain``)
+computes the same function with ``torch.matmul``.
+``blocked_element_jacobian`` runs the plain version for tensors on the CPU
+and the kernel for tensors on a CUDA device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import weakref
+
+import torch
+
+from . import nvcc
+from .ad_jacobian import param_sizes
+from .energy_codegen import EnergyCode, UnsupportedEnergy, trace_entries
+from .fused_jacobian import check_operand
+
+HEADERS = ("blocked_jacobian.cuh", "ad_jacobian.cuh")
+# (vdim, sd) the kernel is compiled for: 2D and 3D vector GRAD inputs
+KERNEL_SHAPES = ((2, 2), (3, 3))
+
+
+def kernel_source(code: EnergyCode, vdim: int, sd: int) -> str:
+    """The ``.cu`` translation unit for one traced energy: the header, the
+    generated entries, and ``extern "C"`` launchers for f32 and f64."""
+    if (vdim, sd) not in KERNEL_SHAPES or code.n_input != vdim * sd:
+        raise ValueError(f"(vdim, sd) = ({vdim}, {sd}) with n = "
+                         f"{code.n_input} is not among {KERNEL_SHAPES}")
+    lines = [
+        '#include "blocked_jacobian.cuh"',
+        "",
+        code.source,
+        "struct Entries {",
+        f"  static constexpr int kInputs = {code.n_input};",
+        f"  static constexpr int kParams = {code.n_params};",
+        "  template <typename T>",
+        "  static AD_HD void eval(const T* x, const T* p, T* h) {",
+        f"    {code.name}<T>(x, p, h);",
+        "  }",
+        "};",
+        "",
+    ]
+    for suffix, s in (("f32", "float"), ("f64", "double")):
+        lines += [
+            f'extern "C" int bj_launch_{suffix}(const void* ue, '
+            "const void* B0, const void* Ww, const void* prm, void* A, "
+            "int64_t ne, int nq, int nd, void* stream) {",
+            f"  return bj::launch<{s}, {vdim}, {sd}, Entries>(ue, B0, Ww, "
+            "prm, A, ne, nq, nd, static_cast<cudaStream_t>(stream));",
+            "}",
+            "",
+        ]
+    return "\n".join(lines)
+
+
+def build_library(code: EnergyCode, vdim: int, sd: int) -> str:
+    """Compile the energy's kernel when its library is missing; returns the
+    compiler's report (empty when the library already exists).  Raises
+    when nvcc is missing or fails."""
+    return nvcc.build_library("blocked_jacobian",
+                              kernel_source(code, vdim, sd), HEADERS)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def _library(code: EnergyCode, vdim: int, sd: int):
+    return nvcc.load_library(
+        "blocked_jacobian", kernel_source(code, vdim, sd), HEADERS,
+        {"bj_launch_f32": _ARGTYPES, "bj_launch_f64": _ARGTYPES})
+
+
+# energy -> {parameter sizes: its traced entries}.  Tracing the 3D
+# neo-Hookean entries takes milliseconds of host time, as long as a kernel
+# launch at 3D p1, so each energy object is traced once per parameter
+# layout.
+_TRACES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def entries_code(f, psizes: dict) -> EnergyCode:
+    """``trace_entries(f, psizes)``, once per energy object and parameter
+    sizes.  Raises ``UnsupportedEnergy`` as ``trace_entries`` does."""
+    key = tuple(sorted(psizes.items()))
+    per_f = _TRACES.setdefault(f, {})
+    code = per_f.get(key)
+    if code is None:
+        code = per_f[key] = trace_entries(f, psizes)
+    return code
+
+
+def blocked_element_jacobian_plain(f, ue, B0, W0, wq, params, vdim, sd):
+    """Plain PyTorch version of the kernel.
+
+    Args:
+        f: energy with ``hessian_closed_entries``, input n = vdim*sd.
+        ue: [ne, vdim*nd] element dofs, byNODES (v, i) flat.
+        B0: [nq, nd, sd] element-shared shape gradients.
+        W0: [nq*sd*sd, nd*nd] blocked contraction factor, rows (q, a, b),
+            columns (i, j): W0[(q,a,b),(i,j)] = B0[q,i,a] B0[q,j,b].
+        wq: [nq] element-shared quadrature weights.
+        params: name -> [nq, k] element-shared parameter values.
+        vdim, sd: components and spatial derivatives per component.
+
+    Returns:
+        A [ne, vdim*nd, vdim*nd], rows and columns (v, i).
+    """
+    ne = ue.shape[0]
+    nq, nd, _ = B0.shape
+    x = torch.einsum("evi,qia->eqva", ue.reshape(ne, vdim, nd), B0)
+    g = [x[:, :, v, a] for v in range(vdim) for a in range(sd)]
+    pt = {k: [v[:, i] for i in range(v.shape[1])] for k, v in params.items()}
+    rows = f.hessian_closed_entries(g, pt)
+    H = torch.stack(
+        [
+            torch.as_tensor(rows[v * sd + a][w * sd + b], dtype=ue.dtype,
+                            device=ue.device).expand(ne, nq)
+            for v in range(vdim) for w in range(vdim)
+            for a in range(sd) for b in range(sd)
+        ],
+        dim=-1,
+    ).reshape(ne, nq, vdim * vdim, sd * sd)  # [e, q, (v,w), (a,b)]
+    Hk = H.permute(0, 2, 1, 3).reshape(ne * vdim * vdim, nq * sd * sd)
+    Ww = W0 * wq.repeat_interleave(sd * sd)[:, None]
+    A = (Hk @ Ww).reshape(ne, vdim, vdim, nd, nd)  # [e, v, w, i, j]
+    return A.permute(0, 1, 3, 2, 4).reshape(ne, vdim * nd, vdim * nd)
+
+
+def blocked_element_jacobian(f, ue, B0, W0, wq, params, vdim, sd):
+    """A [ne, vdim*nd, vdim*nd] = element Jacobians of energy ``f``
+    (arguments as in ``blocked_element_jacobian_plain``).
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel
+    (counted in ``blocked_element_jacobian.launches``) or raise: entries
+    that do not trace raise ``UnsupportedEnergy``; there is no fallback on
+    the device."""
+    if ue.device.type == "cpu":
+        return blocked_element_jacobian_plain(f, ue, B0, W0, wq, params,
+                                              vdim, sd)
+    if ue.device.type != "cuda":
+        raise ValueError(f"unsupported device {ue.device}")
+    if ue.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {ue.dtype}")
+    if (vdim, sd) not in KERNEL_SHAPES:
+        raise ValueError(f"(vdim, sd) = ({vdim}, {sd}) is not among the "
+                         f"compiled shapes {KERNEL_SHAPES}")
+    if ue.dim() != 2 or B0.dim() != 3:
+        raise ValueError(f"ue: shape {tuple(ue.shape)}, B0: shape "
+                         f"{tuple(B0.shape)}; expected [ne, nde] and "
+                         "[nq, nd, sd]")
+    ne = ue.shape[0]
+    nq, nd = B0.shape[0], B0.shape[1]
+    check_operand("ue", ue, (ne, vdim * nd), ue)
+    check_operand("B0", B0, (nq, nd, sd), ue)
+    check_operand("W0", W0, (nq * sd * sd, nd * nd), ue)
+    check_operand("wq", wq, (nq,), ue)
+    code = entries_code(f, param_sizes(params))
+    if code.n_input != vdim * sd:
+        raise ValueError(f"the entries take n = {code.n_input} inputs, "
+                         f"not vdim*sd = {vdim * sd}")
+    if tuple(k for k, _ in code.param_sizes) != tuple(sorted(params)):
+        raise ValueError(f"parameters {sorted(params)} differ from the "
+                         f"trace's {[k for k, _ in code.param_sizes]}")
+    for k, size in code.param_sizes:
+        check_operand(k, params[k], (nq, size), ue)
+    A = torch.empty((ne, vdim * nd, vdim * nd), dtype=ue.dtype,
+                    device=ue.device)
+    if ne == 0:
+        return A
+    # fold the element-shared quadrature weights into W0's rows
+    Ww = (W0 * wq.repeat_interleave(sd * sd)[:, None]).contiguous()
+    prm = (torch.cat([params[k] for k, _ in code.param_sizes], dim=1)
+           .contiguous() if code.n_params else None)
+    lib = _library(code, vdim, sd)
+    launch = lib.bj_launch_f32 if ue.dtype == torch.float32 else (
+        lib.bj_launch_f64
+    )
+    with torch.cuda.device(ue.device):
+        stream = torch.cuda.current_stream(ue.device).cuda_stream
+        err = launch(
+            ue.data_ptr(), B0.data_ptr(), Ww.data_ptr(),
+            None if prm is None else prm.data_ptr(), A.data_ptr(), ne, nq,
+            nd, stream,
+        )
+    if err != 0:  # also where one point chunk exceeds the shared memory
+        raise RuntimeError(
+            f"blocked_jacobian kernel launch failed: CUDA error {err}")
+    blocked_element_jacobian.launches += 1
+    return A
+
+
+blocked_element_jacobian.launches = 0
+
+
+def blocked_inputs(intg, ublocks):
+    """The operands (ue, B0, W0, wq, params) of
+    ``blocked_element_jacobian`` for the (0, 0) block of a single-space
+    integrator with a blocked factor W0."""
+    t = intg.tables
+    ue = intg.gather(0, ublocks[0])  # [ne, nd, vdim]
+    ue2 = ue.permute(0, 2, 1).reshape(ue.shape[0], -1).contiguous()
+    params = {k: v[0].contiguous() for k, v in t["static"].items()}
+    return (ue2, t["B"][0][0].contiguous(), t["W0"]["0_0"].contiguous(),
+            t["w"][0].contiguous(), params)
+
+
+def blocked_refusal(intg) -> str | None:
+    """Why the blocked-W0 kernel cannot serve an integrator that the
+    closed-entries route sends to it (CUDA tables that admit a fused
+    kernel, ``fused_jacobian.uses_blocked_kernel``), or None when it can."""
+    t = intg.tables
+    vdim, sd = intg.vdim[0], intg.sd[0]
+    if (vdim, sd) not in KERNEL_SHAPES:
+        return (f"(vdim, sd) = ({vdim}, {sd}) is not among the compiled "
+                f"shapes {KERNEL_SHAPES}")
+    if intg.dtype not in (torch.float32, torch.float64):
+        return f"unsupported dtype {intg.dtype}"
+    if t["B"][0].shape[0] != 1:
+        return "B is not element-shared"
+    try:
+        entries_code(intg.f, param_sizes(t["static"]))
+    except UnsupportedEnergy as e:
+        return f"the closed entries do not trace: {e}"
+    return None

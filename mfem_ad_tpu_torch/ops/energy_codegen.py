@@ -79,10 +79,10 @@ class _Trace:
             self.memo[expr] = name
         return name
 
-    def live_lines(self, ret: str) -> list[str]:
-        """The lines the value ``ret`` depends on, in order."""
+    def live_lines(self, roots) -> list[str]:
+        """The lines the values named in ``roots`` depend on, in order."""
         deps = {name: d for name, _, d in self.lines}
-        live, todo = set(), [ret]
+        live, todo = set(), list(roots)
         while todo:
             name = todo.pop()
             if name in deps and name not in live:
@@ -364,6 +364,36 @@ class SymVec(_Arith):
         return SymVec(fn(u, v) for u, v in zip(av, bv))
 
 
+def _traced_call(fn, n: int, param_sizes: dict):
+    """Call ``fn(x, p)`` on symbolic inputs: (its result, the trace, the
+    parameter sizes in the order of ``p``, the parameter count)."""
+    tr = _Trace()
+    x = SymVec(Sym(tr, f"x[{i}]") for i in range(n))
+    p, off = {}, 0
+    sizes = tuple((k, int(param_sizes[k])) for k in sorted(param_sizes))
+    for k, size in sizes:
+        p[k] = SymVec(Sym(tr, f"p[{off + i}]") for i in range(size))
+        off += size
+    try:
+        out = fn(x, p)
+    except UnsupportedEnergy:
+        raise
+    except (TypeError, AttributeError, KeyError, IndexError,
+            NotImplementedError) as e:
+        raise UnsupportedEnergy(f"{type(e).__name__}: {e}") from e
+    return out, tr, sizes, off
+
+
+def _scalar(out, what: str) -> str:
+    """The C++ name of a traced scalar, or the literal of a constant."""
+    if isinstance(out, Sym):
+        return out.name
+    if isinstance(out, (SymVec, SymBool)):
+        raise UnsupportedEnergy(
+            f"{what} is a {type(out).__name__}, not a scalar")
+    return f"T({_operand(out)[0]})"
+
+
 def trace_energy(f, param_sizes: dict, name: str = "energy") -> EnergyCode:
     """Trace ``f.energy`` into the C++ template function ``name``.
 
@@ -375,30 +405,10 @@ def trace_energy(f, param_sizes: dict, name: str = "energy") -> EnergyCode:
     Raises:
         UnsupportedEnergy: the energy uses an operation that is not emitted.
     """
-    tr = _Trace()
     n = int(f.n_input)
-    x = SymVec(Sym(tr, f"x[{i}]") for i in range(n))
-    p, off = {}, 0
-    sizes = tuple((k, int(param_sizes[k])) for k in sorted(param_sizes))
-    for k, size in sizes:
-        p[k] = SymVec(Sym(tr, f"p[{off + i}]") for i in range(size))
-        off += size
-    try:
-        out = f.energy(x, p)
-    except UnsupportedEnergy:
-        raise
-    except (TypeError, AttributeError, KeyError, IndexError,
-            NotImplementedError) as e:
-        raise UnsupportedEnergy(f"{type(e).__name__}: {e}") from e
-    if isinstance(out, Sym):
-        ret = out.name
-        lines = tr.live_lines(ret)
-    else:
-        lines = []
-        if isinstance(out, (SymVec, SymBool)):
-            raise UnsupportedEnergy(
-                f"the energy returned a {type(out).__name__}, not a scalar")
-        ret = f"T({_operand(out)[0]})"
+    out, tr, sizes, n_params = _traced_call(f.energy, n, param_sizes)
+    ret = _scalar(out, "the energy's value")
+    lines = tr.live_lines([ret])
     body = "\n".join(lines)
     source = (
         "template <typename T>\n"
@@ -409,4 +419,46 @@ def trace_energy(f, param_sizes: dict, name: str = "energy") -> EnergyCode:
         "}\n"
     )
     return EnergyCode(source=source, name=name, n_input=n,
-                      param_sizes=sizes, n_params=off, n_ops=len(lines))
+                      param_sizes=sizes, n_params=n_params,
+                      n_ops=len(lines))
+
+
+def trace_entries(f, param_sizes: dict,
+                  name: str = "hess_entries") -> EnergyCode:
+    """Trace ``f.hessian_closed_entries`` into one C++ template function
+
+        template <typename T>
+        AD_HD void name(const T* x, const T* p, T* h)
+
+    that writes the n x n closed-form Hessian entries to ``h[a*n + b]``.
+    One trace serves all n^2 entries, so their common subexpressions are
+    computed once.  An entry that is a constant or a parameter is written
+    too.
+
+    Raises:
+        UnsupportedEnergy: ``f`` has no closed entries, or they use an
+            operation that is not emitted or are not an n x n table of
+            scalars.
+    """
+    entries = getattr(f, "hessian_closed_entries", None)
+    if entries is None:
+        raise UnsupportedEnergy(
+            f"{type(f).__name__} has no hessian_closed_entries")
+    n = int(f.n_input)
+    rows, tr, sizes, n_params = _traced_call(entries, n, param_sizes)
+    if len(rows) != n or any(len(r) != n for r in rows):
+        raise UnsupportedEnergy(f"the closed entries are not {n} x {n}")
+    rets = [_scalar(h, f"entry ({a}, {b})")
+            for a, row in enumerate(rows) for b, h in enumerate(row)]
+    lines = tr.live_lines(rets)
+    stores = [f"  h[{k}] = {r};" for k, r in enumerate(rets)]
+    source = (
+        "template <typename T>\n"
+        f"AD_HD void {name}(const T* x, const T* p, T* h) {{\n"
+        "  using S = typename ad::scalar_of<T>::type;\n"
+        + "".join(line + "\n" for line in lines + stores)
+        + "}\n"
+    )
+    return EnergyCode(source=source, name=name, n_input=n,
+                      param_sizes=sizes, n_params=n_params,
+                      n_ops=len(lines))

@@ -14,9 +14,9 @@ registers; the plain PyTorch version (``fused_element_jacobian_plain``)
 materialises it.  ``fused_element_jacobian`` runs the plain version for
 tensors on the CPU and the kernel for tensors on a CUDA device.
 
-The kernel is compiled with ``nvcc`` for sm_90a at first use into
-``mfem_ad_tpu_torch/_build/`` (rebuilt when the source is newer) and bound
-through ``ctypes``.
+The kernel is compiled by ``ops/nvcc.py`` for sm_90a at first use into
+``mfem_ad_tpu_torch/_build/`` (under a name that hashes the source and the
+flags) and bound through ``ctypes``.
 """
 
 from __future__ import annotations
@@ -24,21 +24,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
-import shutil
-import subprocess
 
 import torch
 
 from ..ad import LinearElasticityEnergy, NeoHookeanEnergy
+from . import nvcc
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_jacobian.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libfused_jacobian.so")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+SOURCE = os.path.join(nvcc.CSRC, "fused_jacobian.cu")
 
 # Sizes the kernel is compiled for: 2D GRAD|VECTOR input (n = vdim*sd = 4)
 # on Q1 quads (nde = vdim*nd = 8).
@@ -59,39 +51,56 @@ def cuda_energy_id(f) -> int | None:
     return _CUDA_ENERGIES.get((type(f), getattr(f, "dim", None)))
 
 
+def uses_blocked_kernel(intg, s: int = 0) -> bool:
+    """True when the closed-entries route takes the blocked-W0 kernel
+    (``ops.blocked_jacobian``) for the (s, s) block rather than this
+    module's full-W kernel: the energy has closed entries, the integrator
+    installed ``W0["s_s"]`` and the input is pure GRAD|VECTOR,
+    n = vdim*sd.  The JAX package makes the same choice
+    (``fused_jacobian.py:403-416``) but checks n against vdim alone where
+    sd is missing."""
+    return (f"{s}_{s}" in intg.tables["W0"]
+            and intg.f.hessian_closed_entries is not None
+            and intg.n_input == intg.vdim[s] * intg.sd[s])
+
+
 def supports_fused(intg, s: int = 0) -> bool:
     """True when the integrator's tables admit a fused element-Jacobian
     kernel for the (s, s) block: shared R plus a full W (or a blocked W0
-    with closed-form entries and a pure-GRAD vector layout), one space,
-    element-shared static parameters and quadrature weights."""
+    where ``uses_blocked_kernel``), one space, element-shared static
+    parameters and quadrature weights."""
     t = intg.tables
     if "R" not in t:
         return False
     has_w = f"{s}_{s}" in t["W"]
-    has_w0 = (
-        f"{s}_{s}" in t["W0"]
-        and intg.f.hessian_closed_entries is not None
-        and intg.n_input == intg.vdim[s] * intg.sd[s]
-    )
-    if not (has_w or has_w0) or len(intg.spaces) != 1:
+    if not (has_w or uses_blocked_kernel(intg, s)) or len(intg.spaces) != 1:
         return False
     if not all(v.shape[0] == 1 for v in t["static"].values()):
         return False
     return t["w"].shape[0] == 1
 
 
+def _tables_on_cuda(intg) -> bool:
+    return intg.tables["w"].device.type == "cuda"
+
+
 def kernel_route_refusal(intg) -> str | None:
-    """Why the CUDA kernel cannot assemble this integrator's element
-    Jacobians, or None when it can."""
+    """Why the closed-entries kernel the tables select (blocked-W0 where
+    ``uses_blocked_kernel``, else full-W) cannot assemble this integrator's
+    element Jacobians, or None when it can."""
     t = intg.tables
-    if t["w"].device.type != "cuda":
+    if not _tables_on_cuda(intg):
         return "the kernel runs on CUDA tables only"
+    if intg.f.hessian_closed_entries is None:
+        return f"{type(intg.f).__name__} has no closed Hessian entries"
     if not supports_fused(intg):
         return "tables do not admit a fused kernel (supports_fused)"
+    if uses_blocked_kernel(intg):
+        from .blocked_jacobian import blocked_refusal
+
+        return blocked_refusal(intg)
     if cuda_energy_id(intg.f) is None:
         return f"no CUDA Hessian entries for {type(intg.f).__name__}"
-    if "0_0" in t["W0"] or "0_0" not in t["W"]:
-        return "the blocked-W0 kernel is not ported; only full-W configs"
     if intg.n_input != KERNEL_N or intg.vdim[0] * intg.nd[0] != KERNEL_NDE:
         return f"kernel is compiled for n={KERNEL_N}, nde={KERNEL_NDE}"
     if set(t["static"]) != {"lambda", "mu"}:
@@ -143,39 +152,27 @@ def fused_element_jacobian_plain(f, ue, R, W, wq, params):
     return ((H * wq[:, None]).reshape(ne, -1) @ W).reshape(ne, nde, nde)
 
 
-def build_library() -> str:
-    """Compile the kernel source into ``LIBRARY`` when it is missing or
-    older than the source; returns the compiler's report (empty when the
-    library was up to date)."""
-    if (os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
-
-
 @functools.lru_cache(maxsize=None)
+def _source() -> str:
+    with open(SOURCE) as fh:
+        return fh.read()
+
+
+def build_library() -> str:
+    """Compile the kernel source when its library is missing; returns the
+    compiler's report (empty when the library already exists).  Raises
+    when nvcc is missing or fails."""
+    return nvcc.build_library("fused_jacobian", _source(), ())
+
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [
+    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
 def _library():
-    build_library()
-    lib = ctypes.CDLL(LIBRARY)
-    for name in ("fj_launch_f32", "fj_launch_f64"):
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-    return lib
+    return nvcc.load_library("fused_jacobian", _source(), (),
+                             {"fj_launch_f32": _ARGTYPES,
+                              "fj_launch_f64": _ARGTYPES})
 
 
 def check_operand(name, t, shape, like):
@@ -260,8 +257,15 @@ def kernel_inputs(intg, ublocks):
 
 def element_jacobian_via_kernel(intg, ublocks):
     """``intg.element_matrices(intg.hess_state(ublocks), 0, 0)`` through
-    the fused kernel; raises where the kernel does not apply."""
+    the closed-entries kernel the tables select; raises where it does not
+    apply."""
     why = kernel_route_refusal(intg)
     if why is not None:
         raise ValueError(f"kernel route unavailable: {why}")
+    if uses_blocked_kernel(intg):
+        from . import blocked_jacobian as bj
+
+        return bj.blocked_element_jacobian(
+            intg.f, *bj.blocked_inputs(intg, ublocks), intg.vdim[0],
+            intg.sd[0])
     return fused_element_jacobian(intg.f, *kernel_inputs(intg, ublocks))

@@ -47,6 +47,7 @@ from mfem_ad_tpu_torch.integrator import ADBlockIntegrator as PIntegrator
 from mfem_ad_tpu_torch.models import elasticity as pex3
 from mfem_ad_tpu_torch.models import poisson as pex1
 from mfem_ad_tpu_torch.ops import ad_jacobian as adj
+from mfem_ad_tpu_torch.ops import nvcc
 from mfem_ad_tpu_torch.ops.energy_codegen import (
     UnsupportedEnergy,
     trace_energy,
@@ -180,7 +181,7 @@ def host_lib(tmp_path_factory):
     src.write_text("\n".join(parts))
     proc = subprocess.run(
         [gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-Wall", "-Werror",
-         "-Wno-unused-local-typedefs", "-I", adj.CSRC, "-o", str(lib),
+         "-Wno-unused-local-typedefs", "-I", nvcc.CSRC, "-o", str(lib),
          str(src)],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
@@ -250,7 +251,7 @@ def test_kernel_source_names_every_compiled_size():
     a = adj.library_path(trace_energy(f, sizes))
     b = adj.library_path(trace_energy(pad.ADFunction(
         2, _minimal_surface(0.1)), sizes))
-    assert a != b and a.startswith(adj.BUILD_DIR)
+    assert a != b and a.startswith(nvcc.BUILD_DIR)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""The CUDA element-Jacobian kernels (closed entries, and generic AD)
-against their plain PyTorch versions, on the card.  Skips where there is
+"""The CUDA element-Jacobian kernels (closed entries full-W and blocked-W0,
+and generic AD) against their plain PyTorch versions, on the card.  Skips where there is
 no CUDA device.  This file imports neither jax nor the JAX package, so it
 also runs on a machine without them:
 
@@ -24,6 +24,7 @@ from mfem_ad_tpu_torch.adeval import ADEval
 from mfem_ad_tpu_torch.fespace import FESpace
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator
 from mfem_ad_tpu_torch.ops import ad_jacobian as adj
+from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
 
 pytestmark = pytest.mark.cuda
@@ -79,12 +80,18 @@ def test_auto_route_takes_the_kernel_on_card(cuda):
     assert float((A - A_two).abs().max()) <= 1e-5 * scale
 
 
-def test_blocked_w0_configs_stay_on_two_stage(cuda):
+def test_blocked_w0_configs_take_the_blocked_kernel(cuda):
     intg, u = _integrator("neohookean", 4, 4, 2, torch.float64, cuda)
-    assert "W0" in fj.kernel_route_refusal(intg)
-    with pytest.raises(ValueError, match="W0"):
-        intg.element_jacobians([u], route="kernel")
-    assert intg.element_jacobians([u]).shape == (16, 18, 18)
+    assert fj.kernel_route_refusal(intg) is None
+    assert fj.uses_blocked_kernel(intg)
+    before = (fj.fused_element_jacobian.launches,
+              bj.blocked_element_jacobian.launches)
+    A = intg.element_jacobians([u])
+    A_kernel = intg.element_jacobians([u], route="kernel")
+    assert A.shape == (16, 18, 18) and torch.equal(A, A_kernel)
+    assert (fj.fused_element_jacobian.launches,
+            bj.blocked_element_jacobian.launches) == (before[0],
+                                                      before[1] + 2)
 
 
 def test_wrapper_rejects_bad_operands_on_card(cuda):
@@ -208,3 +215,67 @@ def test_ad_wrapper_rejects_bad_operands_on_card(cuda):
     with pytest.raises(ValueError, match="dtype"):
         adj.ad_element_jacobian(f, ue.half(), R, W, w, params)
     assert adj.ad_element_jacobian.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The blocked-W0 kernel
+# ---------------------------------------------------------------------------
+
+
+def _vector_integrator(energy, dim, order, dims, dtype, device):
+    m = (M.make_cartesian_2d(*dims) if dim == 2
+         else M.make_cartesian_3d(*dims))
+    fes = FESpace(m, order, vdim=dim)
+    intg = ADBlockIntegrator(ENERGIES[energy](dim, 1.0, 1.0), [fes],
+                             [ADEval.GRAD | ADEval.VECTOR], device=device,
+                             dtype=dtype)
+    rng = np.random.default_rng(7)
+    # 0.01/n: det F stays above 0.6 at p2 and p3 (0.1/n does not)
+    u = (0.01 / max(dims)) * rng.standard_normal(fes.ndof)
+    return intg, torch.as_tensor(u, dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("energy", sorted(ENERGIES))
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("dim,order,dims", [
+    (2, 2, (3, 3)), (2, 2, (61, 37)), (3, 1, (5, 4, 3)), (3, 2, (3, 2, 2)),
+])
+def test_blocked_kernel_matches_plain_on_card(cuda, energy, dtype, dim,
+                                              order, dims):
+    intg, u = _vector_integrator(energy, dim, order, dims, dtype, cuda)
+    assert fj.uses_blocked_kernel(intg)
+    before = bj.blocked_element_jacobian.launches
+    A = intg.element_jacobians([u], route="kernel")
+    A_plain = bj.blocked_element_jacobian_plain(
+        intg.f, *bj.blocked_inputs(intg, [u]), dim, dim)
+    torch.cuda.synchronize()
+    assert bj.blocked_element_jacobian.launches == before + 1
+    nde = dim * intg.nd[0]
+    assert A.shape == (int(np.prod(dims)), nde, nde)
+    assert torch.isfinite(A).all()
+    scale = float(A_plain.abs().max())
+    assert float((A - A_plain).abs().max()) <= TOL[dtype] * scale
+
+
+def test_blocked_wrapper_rejects_bad_operands_on_card(cuda):
+    intg, u = _vector_integrator("neohookean", 3, 1, (2, 2, 2),
+                                 torch.float32, cuda)
+    ue, B0, W0, w, params = bj.blocked_inputs(intg, [u])
+    f = intg.f
+    before = bj.blocked_element_jacobian.launches
+    with pytest.raises(ValueError, match="shape"):
+        bj.blocked_element_jacobian(f, ue[:, :12].contiguous(), B0, W0, w,
+                                    params, 3, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        bj.blocked_element_jacobian(f, ue.T.contiguous().T, B0, W0, w,
+                                    params, 3, 3)
+    with pytest.raises(ValueError, match="float32"):
+        bj.blocked_element_jacobian(f, ue, B0.double(), W0, w, params, 3, 3)
+    with pytest.raises(ValueError, match="compiled shapes"):
+        bj.blocked_element_jacobian(f, ue, B0, W0, w, params, 2, 3)
+    with pytest.raises(ValueError, match="lambda"):
+        bj.blocked_element_jacobian(f, ue, B0, W0, w, {"mu": params["mu"]},
+                                    3, 3)
+    with pytest.raises(ValueError, match="dtype"):
+        bj.blocked_element_jacobian(f, ue.half(), B0, W0, w, params, 3, 3)
+    assert bj.blocked_element_jacobian.launches == before

@@ -159,7 +159,8 @@ def test_port_imports_without_nvcc_triton_or_jax():
         "import mfem_ad_tpu_torch as P\n"
         "from mfem_ad_tpu_torch import convert, forms, solvers\n"
         "from mfem_ad_tpu_torch.models import elasticity, poisson\n"
-        "from mfem_ad_tpu_torch.ops import fused_jacobian\n"
+        "from mfem_ad_tpu_torch.ops import (ad_jacobian, blocked_jacobian,"
+        " energy_codegen, fused_jacobian, nvcc)\n"
         "m = P.mesh.make_cartesian_2d(2, 2)\n"
         "fes = P.fespace.FESpace(m, 1, vdim=2)\n"
         "intg = P.ADBlockIntegrator(P.NeoHookeanEnergy(2, 1.0, 1.0), [fes],"
