@@ -26,18 +26,22 @@ through their public entry points:
         ``element_jacobians`` with the default route, and the headline
         neo-Hookean on route="kernel_ad" (the pure-AD rate);
      D3 kernel, plain, end-to-end and two-stage timings for each D2
-        configuration, beside each one's bound;
+        configuration, beside each one's bound and cuBLAS's time for the
+        contraction GEMM alone;
   E. the blocked-W0 element-Jacobian kernel (closed entries code-generated,
      contracted per vdim-block pair with W0; 2D p>=2 and 3D):
      E1 against its plain PyTorch version in f64 and f32, neo-Hookean and
-        linear elasticity, at 2D p2 3x3 and 511x509, 2D p3 3x3, 3D p1 3^3
-        and 63x64x65, 3D p2 3x2x2 and 3D p3 2^3 (the small ones also
-        against the two-stage route), with min det F > 0.2 asserted;
+        linear elasticity, at 2D p2 3x3 and 511x509, 2D p3 3x3, 3D p1 3^3,
+        63x64x65 and 29x31x33, 3D p2 3x2x2 and 13x11x9, and 3D p3 2^3 (the
+        small ones also against the two-stage route), with min det F > 0.2
+        asserted;
      E2 main path: 2D p2 neo-Hookean 512x512, 3D p1 neo-Hookean 64^3 and
         ex3's 3D p2 linear elasticity at 32^3 (``models.elasticity``), f32,
         through ``element_jacobians`` with the default route;
      E3 kernel, plain, two-stage and bound for each E2 configuration, and
-        cuBLAS's time for the contraction GEMM alone as a yardstick.
+        cuBLAS's time for the contraction GEMM alone as a yardstick, beside
+        the kernel's launch plan, its registers and spills, and the
+        register-bank conflicts of its main loop (``cuobjdump -sass``).
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
@@ -55,6 +59,7 @@ path: without a CUDA device the script exits with an error.
 from __future__ import annotations
 
 import json
+import os
 import re
 import shutil
 import statistics
@@ -82,7 +87,7 @@ from mfem_ad_tpu_torch.models import elasticity, poisson
 from mfem_ad_tpu_torch.ops import ad_jacobian as adj
 from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
-from mfem_ad_tpu_torch.ops.energy_codegen import trace_energy
+from mfem_ad_tpu_torch.ops import nvcc
 from mfem_ad_tpu_torch.solvers import NewtonOptions, newton
 
 MODE = ADEval.GRAD | ADEval.VECTOR
@@ -342,11 +347,54 @@ def ptxas_lines(report: str) -> list[str]:
     return [f"{n}: {r}" for n, (_, r) in zip(names, out)]
 
 
+BLOCKED_PTXAS: list[str] = []  # the blocked kernels' registers and spills
+
+
+def sass_bank_report(lib_path: str) -> list[str]:
+    """For each f32 blocked kernel in a built library: the loop densest in
+    FFMAs in cuobjdump's SASS, its instruction count, and how many of
+    its FFMAs read two registers of one parity without the operand reuse
+    cache (one register bank of two: an extra issue cycle each)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return ["cuobjdump not found: SASS not read"]
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out = []
+    for body in sass.split("Function : ")[1:]:
+        if "blocked_kernelIf" not in body.split("\n", 1)[0]:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2).strip()) for m in re.finditer(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+        best = None
+        for addr, text in ins:
+            m = re.search(r"BRA (0x[0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                loop = [t for a, t in ins if int(m.group(1), 16) <= a <= addr]
+                n = sum(t.startswith("FFMA") for t in loop)
+                if n >= 64 and (best is None
+                                or n / len(loop) > best[0] / len(best[1])):
+                    best = (n, loop)
+        if best is None:
+            continue
+        same = 0
+        for t in best[1]:
+            m = re.match(r"FFMA R\d+, (R\d+)(\.reuse)?, (R\d+)(\.reuse)?, "
+                         r"(R\d+)(\.reuse)?", t)
+            if m:
+                live = [int(m.group(k)[1:]) for k in (1, 3, 5)
+                        if not m.group(k + 1)]
+                same += len({r % 2 for r in live}) < len(live)
+        out.append(f"main loop {len(best[1])} instructions, {best[0]} FFMA, "
+                   f"{same} FFMA with two operands in one register bank")
+    return out
+
+
 def build_all():
     """Compile every kernel source at once, one nvcc each."""
     jobs = {"fused_jacobian.cu": fj.build_library}
     for f, sizes in AD_TRACES:
-        code = trace_energy(f, sizes)
+        code = adj.energy_code(f, sizes)
         jobs[f"ad_jacobian.cuh + {type(f).__name__}"] = (
             lambda code=code: adj.build_library(code))
     for f in BLOCKED_ENERGIES:
@@ -369,6 +417,8 @@ def build_all():
         log(f"build {k}: {sec:.1f} s")
         for line in ptxas_lines(report):
             log(f"  ptxas {line}")
+            if "blocked_kernel" in line:
+                BLOCKED_PTXAS.append(line)
 
 
 # ---------------------------------------------------------------------------
@@ -546,6 +596,19 @@ def device_ms(fn, match: str | None = None, events_ms: float | None = None):
     return events_ms
 
 
+def contraction_gemm_ms(ne, nq, n, nde, dev) -> float:
+    """cuBLAS's time for the full-W kernels' contraction alone,
+    [ne, nq n^2] @ [nq n^2, nde^2] in f32 at highest precision, on seeded
+    operands: a yardstick only (the port never calls it)."""
+    H = seeded(ne * nq * n * n, 1.0, 12, torch.float32, dev).reshape(
+        ne, nq * n * n)
+    W = seeded(nq * n * n * nde * nde, 1.0, 13, torch.float32, dev).reshape(
+        nq * n * n, nde * nde)
+    ms = cuda_ms(lambda: H @ W)
+    del H, W
+    return ms
+
+
 def phase_d3_timing(configs, main):
     """AD kernel vs plain (plain, kernel, kernel, plain) and the routes end
     to end, for each D2 configuration."""
@@ -553,8 +616,7 @@ def phase_d3_timing(configs, main):
     for name, (intg, u, route) in configs.items():
         ne = intg.tables["edof"][0].shape[0]
         args = fj.kernel_inputs(intg, [u])
-        code = trace_energy(intg.f, adj.param_sizes(args[4]))
-        A_k = adj.ad_element_jacobian(intg.f, *args, code=code)
+        A_k = adj.ad_element_jacobian(intg.f, *args)
         A_p = adj.ad_element_jacobian_plain(intg.f, *args)
         torch.cuda.synchronize()
         err = float((A_k - A_p).abs().max())
@@ -565,10 +627,8 @@ def phase_d3_timing(configs, main):
             raise AssertionError(f"{name}: repeat call differs from D2")
         del A_k, A_p
         p1 = cuda_ms(lambda: adj.ad_element_jacobian_plain(intg.f, *args))
-        k1 = cuda_ms(lambda: adj.ad_element_jacobian(intg.f, *args,
-                                                     code=code))
-        k2 = cuda_ms(lambda: adj.ad_element_jacobian(intg.f, *args,
-                                                     code=code))
+        k1 = cuda_ms(lambda: adj.ad_element_jacobian(intg.f, *args))
+        k2 = cuda_ms(lambda: adj.ad_element_jacobian(intg.f, *args))
         p2 = cuda_ms(lambda: adj.ad_element_jacobian_plain(intg.f, *args))
         e2e = {r: cuda_ms(lambda r=r: intg.element_jacobians([u], route=r))
                for r in ("auto", "kernel_ad", "two_stage")}
@@ -576,16 +636,17 @@ def phase_d3_timing(configs, main):
                            intg.vdim[0] * intg.nd[0],
                            sum(adj.param_sizes(args[4]).values()),
                            torch.float32)
-        k_ms = device_ms(
-            lambda: adj.ad_element_jacobian(intg.f, *args, code=code),
-            "jacobian_kernel", min(k1, k2))
+        k_ms = device_ms(lambda: adj.ad_element_jacobian(intg.f, *args),
+                         "jacobian_kernel", min(k1, k2))
         p_ms = device_ms(
             lambda: adj.ad_element_jacobian_plain(intg.f, *args),
             None, min(p1, p2))
+        lib_ms = contraction_gemm_ms(args[0].shape[0], args[3].shape[0],
+                                     intg.n_input, args[0].shape[1], u.device)
         log(f"D3 {name}: AD kernel device {k_ms:.4f} ms "
             f"({ne / (k_ms / 1e3):.6e} elem/s), bound {b_ms:.4f} ms "
             f"({b_by}), {b_ms / k_ms:.1%} of bound; plain device "
-            f"{p_ms:.4f} ms")
+            f"{p_ms:.4f} ms; cuBLAS contraction GEMM {lib_ms:.4f} ms")
         log(f"D3 {name} calls by CUDA events: AD kernel wrapper "
             f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
         log(f"D3 {name} element_jacobians end to end: " + ", ".join(
@@ -597,7 +658,7 @@ def phase_d3_timing(configs, main):
             "; ".join(f"{k[:60]} {t:.4f} ms" for k, t in prof[:6])
             or "not visible to torch.profiler"))
         rows[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                          bound_by=b_by)
+                          bound_by=b_by, library_ms=lib_ms)
     return rows
 
 
@@ -609,11 +670,15 @@ BLOCKED_ENERGIES = (
     NeoHookeanEnergy(2, 1.0, 1.0), NeoHookeanEnergy(3, 1.0, 1.0),
     LinearElasticityEnergy(2, 1.0, 1.0), LinearElasticityEnergy(3, 1.0, 1.0),
 )
-# E1 shapes: (dim, order, mesh dims, also against two-stage)
+# E1 shapes: (dim, order, mesh dims, also against two-stage).  511x509,
+# 29x31x33 and 13x11x9 give element counts that are multiples of none of
+# the f32 launch plans' element tiles (32, 21, 7), and nd^2 = 81 and 729
+# are multiples of neither column tile (96, 384).
 E1_CASES = (
     (2, 2, (3, 3), True), (2, 2, (511, 509), False), (2, 3, (3, 3), True),
     (3, 1, (3, 3, 3), True), (3, 1, (63, 64, 65), False),
-    (3, 2, (3, 2, 2), True), (3, 3, (2, 2, 2), True),
+    (3, 1, (29, 31, 33), False), (3, 2, (3, 2, 2), True),
+    (3, 2, (13, 11, 9), False), (3, 3, (2, 2, 2), True),
 )
 
 
@@ -786,6 +851,15 @@ def phase_e3_timing(configs, main):
             f"({ne / (k_ms / 1e3):.6e} elem/s), bound {b_ms:.4f} ms "
             f"({b_by}), {b_ms / k_ms:.1%} of bound; plain device "
             f"{p_ms:.4f} ms; cuBLAS contraction GEMM {lib_ms:.4f} ms")
+        plan = bj.launch_plan(vdim, sd, nd, nq, torch.float32)
+        held = ("resident" if plan.quad_chunk == nq
+                else f"in chunks of {plan.quad_chunk} points")
+        log(f"E3 {name} tiling: {plan.elem_tile} elements x "
+            f"{plan.col_tile} of {nd * nd} columns "
+            f"({plan.padded_cols(nd) // plan.col_tile} tiles), "
+            f"{plan.threads} threads, {plan.stages} ring stages (TMA) of "
+            f"{plan.quad_stage * sd * sd} rows, entries {held}, "
+            f"{plan.smem_bytes} bytes of shared memory")
         log(f"E3 {name} calls by CUDA events: blocked kernel wrapper "
             f"{k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
         log(f"E3 {name} element_jacobians end to end: auto {auto:.4f} ms "
@@ -844,8 +918,11 @@ def main() -> int:
                       "fused_jacobian_kernel", k_ms)
     p_dev = device_ms(
         lambda: fj.fused_element_jacobian_plain(intg.f, *args), None, p_ms)
+    lib_b = contraction_gemm_ms(args[0].shape[0], intg.nq, intg.n_input, 8,
+                                dev)
     log(f"B kernel device {k_dev:.4f} ms, plain device {p_dev:.4f} ms; "
-        f"bound {b_ms:.4f} ms ({b_by}), kernel at {b_ms / k_dev:.1%} of it")
+        f"bound {b_ms:.4f} ms ({b_by}), kernel at {b_ms / k_dev:.1%} of it; "
+        f"cuBLAS contraction GEMM {lib_b:.4f} ms")
     del args
     del A_main, form, res
 
@@ -891,6 +968,15 @@ def main() -> int:
             "times")
     log(f"phase E2 ok: blocked kernel launches on the main path "
         f"{bj_launches}")
+    for line in BLOCKED_PTXAS:
+        log(f"E3 ptxas {line}")
+    for f in BLOCKED_ENERGIES:
+        code = bj.entries_code(f, {"lambda": 1, "mu": 1})
+        path = nvcc.library_path("blocked_jacobian",
+                                 bj.kernel_source(code, f.dim, f.dim),
+                                 bj.HEADERS)
+        for line in sass_bank_report(path):
+            log(f"E3 SASS {type(f).__name__}({f.dim}) f32: {line}")
     e_rows = phase_e3_timing(e_configs, e_main)
     del e_main, e_configs
     log("phase E3 ok")
@@ -907,19 +993,20 @@ def main() -> int:
         "plain_ms": p_dev,
         "bound_ms": b_ms,
         "bound_by": b_by,
-        "library_ms": None,
+        "library_ms": lib_b,
     }, {
         "name": "ad_element_jacobian",
         "route": "cuda",
         "source": "mfem_ad_tpu_torch/csrc/ad_jacobian.cuh",
-        "replaces": "mfem_ad_tpu/ops/fused_jacobian.py:160",
+        "replaces": "mfem_ad_tpu/ops/fused_jacobian.py:160 (_kernel: "
+                    "closed branch :173, generic branch :194)",
         "launches": ad_launches,
         "max_abs_err": head["err"],
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
-        "library_ms": None,
+        "library_ms": head["library_ms"],
     }, {
         "name": "blocked_element_jacobian",
         "route": "cuda",

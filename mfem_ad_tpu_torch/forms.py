@@ -78,8 +78,9 @@ class BlockNonlinearForm:
         return torch.where(self.ess_mask, 0.0, acc)
 
     def grad_state(self, u):
-        """Newton states, packed symmetric-compact (``SymHess``): written
-        once per direction, read by every Krylov matvec."""
+        """Newton states, packed symmetric-compact (``SymHess``; the full
+        nonsymmetric dF/dx for a vector integrand): written once per
+        direction, read by every Krylov matvec."""
         return [
             intg.hess_state(self.split(u), sym=True)
             for intg in self.integrators

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 from torch.func import grad, jacfwd, vmap
 
-from .ad import ADFunction
+from .ad import ADFunction, ADVectorFunction
 from .adeval import ADEval, build_B, shapedim
 from .coefficients import (
     GridFunctionCoefficient,
@@ -187,8 +187,11 @@ class ADBlockIntegrator(nn.Module):
     structured (uniform-Jacobian) mesh.
 
     Args:
-        f: the ADFunction energy; its ``params`` coefficients are tabulated
-           here (static parameters only).
+        f: the ADFunction energy, or an ADVectorFunction F whose output
+           width equals the input width (a pointwise flux: the residual is
+           scatter(B F(B^T u) w) and the Newton state is the generally
+           nonsymmetric Jacobian dF/dx); its ``params`` coefficients are
+           tabulated here (static parameters only).
         spaces: list of FESpace, one per block.
         modes: list of ADEval, one per space.
         ir_order: quadrature order (default 2*max(p)+2).
@@ -266,6 +269,12 @@ class ADBlockIntegrator(nn.Module):
             raise ValueError(
                 f"energy n_input={f.n_input} but input layout has width "
                 f"{self.n_input} (widths per space: {self.widths})"
+            )
+        self.vector_fn = isinstance(f, ADVectorFunction)
+        if self.vector_fn and f.n_output != self.n_input:
+            raise ValueError(
+                f"vector integrand n_output={f.n_output} must equal the "
+                f"input layout width {self.n_input}"
             )
         for s, m in zip(spaces, modes):
             if s.vdim > 1 and not (m & ADEval.VECTOR):
@@ -456,14 +465,19 @@ class ADBlockIntegrator(nn.Module):
 
     # ------------------------------------------------------------------
     def energy(self, ublocks):
+        if self.vector_fn:
+            raise ValueError("vector integrands have no scalar energy")
         x = self.x_qp(ublocks)
         vals = qpmap(self.f.energy, x, self.eval_params())
         return torch.sum(vals * self.tables["w"])
 
     def residual(self, ublocks):
-        """Per-block residual vectors r_s = scatter(B_s (grad f) w)."""
+        """Per-block residual vectors r_s = scatter(B_s (grad f) w); for a
+        vector integrand, grad f is F itself."""
         x = self.x_qp(ublocks)
-        if self.closed and callable(self.f.gradient_closed):
+        if self.vector_fn:
+            pt = self.f.function
+        elif self.closed and callable(self.f.gradient_closed):
             pt = self.f.gradient_closed
         else:
             pt = grad(self.f.energy)
@@ -476,16 +490,21 @@ class ADBlockIntegrator(nn.Module):
     def hess_state(self, ublocks, sym: bool = False):
         """Per-qp weighted Hessian, the Newton state: the full
         [ne, nq, n, n] tensor, or with ``sym=True`` the packed ``SymHess``
-        upper-triangle planes [n(n+1)/2, ne, nq]."""
+        upper-triangle planes [n(n+1)/2, ne, nq].  For a vector integrand
+        it is the Jacobian dF/dx, nonsymmetric in general, so it is never
+        packed: ``sym`` is ignored and the full tensor returned."""
         x = self.x_qp(ublocks)
         p = self.eval_params()
+        w = self.tables["w"]
+        if self.vector_fn:
+            H = qpmap(jacfwd(self.f.function), x, p).to(x.dtype)
+            return H * w[..., None, None]
         if self.closed and callable(self.f.hessian_closed):
             H = qpmap(self.f.hessian_closed, x, p)
         else:
             # jacfwd(grad) promotes f32 per-point ops that take a Python
             # float to f64 (torch 2.x); the state keeps the tables' type
             H = qpmap(jacfwd(grad(self.f.energy)), x, p).to(x.dtype)
-        w = self.tables["w"]
         if not sym:
             return H * w[..., None, None]
         n = self.n_input
@@ -553,6 +572,7 @@ class ADBlockIntegrator(nn.Module):
           "two_stage"  ``hess_state`` then ``element_matrices``;
           "auto"       the first that applies of "kernel", "kernel_ad"
                        and "two_stage".
+        Vector integrands take two-stage: both kernel routes refuse them.
         """
         from .ops import ad_jacobian as adj
         from .ops.fused_jacobian import (
@@ -562,19 +582,16 @@ class ADBlockIntegrator(nn.Module):
 
         if route not in ROUTES:
             raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
-        plan = None
         if route == "auto":
             route = "two_stage"
             if kernel_route_refusal(self) is None:
                 route = "kernel"
-            else:
-                plan = adj.plan_ad_kernel(self)
-                if plan[0] is None:
-                    route = "kernel_ad"
+            elif adj.ad_kernel_route_refusal(self) is None:
+                route = "kernel_ad"
         if route == "kernel":
             return element_jacobian_via_kernel(self, ublocks)
         if route == "kernel_ad":
-            return adj.element_jacobian_via_ad_kernel(self, ublocks, plan)
+            return adj.element_jacobian_via_ad_kernel(self, ublocks)
         return self.element_matrices(self.hess_state(ublocks), 0, 0)
 
     def element_matrices(self, Hq, s: int, t_: int):

@@ -573,7 +573,10 @@ _MFEM_BDR_PERM = {1: [0, 1], 3: [0, 1, 3, 2]}
 
 
 def read_mfem_mesh(path: str) -> Mesh:
-    """Parse an MFEM v1.0 ASCII mesh (straight elements)."""
+    """Parse an MFEM v1.0 ASCII mesh (straight elements of one geometry).
+
+    Raises ValueError naming the cause for a mixed mesh (elements of more
+    than one geometry type) and for a curved mesh (a ``nodes`` section)."""
     with open(path) as f:
         tokens = []
         for line in f:
@@ -588,6 +591,9 @@ def read_mfem_mesh(path: str) -> Mesh:
                 return
         raise ValueError(f"section {section!r} not found")
 
+    if "nodes" in tokens:
+        raise ValueError(f"{path}: curved meshes are not supported (the "
+                         "file has a 'nodes' section)")
     until("dimension")
     dim = int(next(it))
     until("elements")
@@ -596,6 +602,10 @@ def read_mfem_mesh(path: str) -> Mesh:
     for _ in range(ne):
         parts = next(it).split()
         attr, gtype = int(parts[0]), int(parts[1])
+        if geom is not None and _MFEM_GEOM[gtype] != geom:
+            raise ValueError(f"{path}: mixed meshes are not supported "
+                             f"(geometry types {geom} and "
+                             f"{_MFEM_GEOM[gtype]})")
         geom = _MFEM_GEOM[gtype]
         verts = [int(v) for v in parts[2:]]
         elems.append([verts[i] for i in _MFEM_PERM[geom]])

@@ -23,13 +23,19 @@ the kernel for tensors on a CUDA device.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import torch
 from torch.func import grad, jacfwd
 
 from ..integrator import qpmap
 from . import nvcc
-from .energy_codegen import EnergyCode, UnsupportedEnergy, trace_energy
+from .energy_codegen import (
+    EnergyCode,
+    UnsupportedEnergy,
+    cached_trace,
+    trace_energy,
+)
 from .fused_jacobian import (
     SMEM_LIMIT,
     check_operand,
@@ -49,6 +55,16 @@ KERNEL_SIZES = ((1, 4), (1, 9), (2, 4), (2, 9), (3, 8), (4, 8))
 def param_sizes(params: dict) -> dict:
     """name -> values per point, from [..., nq, k] parameter tensors."""
     return {k: int(v.shape[-1]) for k, v in params.items()}
+
+
+_TRACES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def energy_code(f, psizes: dict) -> EnergyCode:
+    """``trace_energy(f, psizes)``, once per energy object and parameter
+    sizes (``energy_codegen.cached_trace``).  Raises ``UnsupportedEnergy``
+    as ``trace_energy`` does."""
+    return cached_trace(_TRACES, trace_energy, f, psizes)
 
 
 def kernel_source(code: EnergyCode) -> str:
@@ -143,10 +159,9 @@ def ad_element_jacobian_plain(f, ue, R, W, wq, params):
         ne, nde, nde)
 
 
-def ad_element_jacobian(f, ue, R, W, wq, params, code=None):
+def ad_element_jacobian(f, ue, R, W, wq, params):
     """A [ne, nde, nde] = element Jacobians of energy ``f`` (arguments as in
-    ``ad_element_jacobian_plain``; ``code`` is ``f``'s trace when the caller
-    already has it).
+    ``ad_element_jacobian_plain``).
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     (counted in ``ad_element_jacobian.launches``) or raise: an energy that
@@ -162,8 +177,7 @@ def ad_element_jacobian(f, ue, R, W, wq, params, code=None):
         raise ValueError(f"ue: shape {tuple(ue.shape)}, expected [ne, nde]")
     ne, nde = ue.shape
     nq = wq.shape[0]
-    if code is None:
-        code = trace_energy(f, param_sizes(params))
+    code = energy_code(f, param_sizes(params))
     n = code.n_input
     if (n, nde) not in KERNEL_SIZES:
         raise ValueError(
@@ -212,46 +226,42 @@ def _tables_on_cuda(intg) -> bool:
     return intg.tables["w"].device.type == "cuda"
 
 
-def plan_ad_kernel(intg):
-    """(reason the AD kernel cannot serve ``intg``, None) or (None, the
-    energy's trace)."""
+def ad_kernel_route_refusal(intg) -> str | None:
+    """Why the AD kernel cannot assemble this integrator's element
+    Jacobians, or None when it can.  The energy is traced once per energy
+    object (``energy_code``)."""
     t = intg.tables
+    if intg.vector_fn:
+        return ("vector integrands (ADVectorFunction) have no scalar "
+                "energy to differentiate")
     if not _tables_on_cuda(intg):
-        return "the AD kernel runs on CUDA tables only", None
+        return "the AD kernel runs on CUDA tables only"
     if not supports_fused(intg):
-        return "tables do not admit a fused kernel (supports_fused)", None
+        return "tables do not admit a fused kernel (supports_fused)"
     if "0_0" not in t["W"]:
         return ("no full W factor: blocked-W0 configurations take the "
-                "blocked-W0 kernel or two-stage"), None
+                "blocked-W0 kernel or two-stage")
     n, nde = intg.n_input, intg.vdim[0] * intg.nd[0]
     if (n, nde) not in KERNEL_SIZES:
         return (f"(n, nde) = ({n}, {nde}) is not among the compiled sizes "
-                f"{KERNEL_SIZES}"), None
+                f"{KERNEL_SIZES}")
     if intg.dtype not in (torch.float32, torch.float64):
-        return f"unsupported dtype {intg.dtype}", None
+        return f"unsupported dtype {intg.dtype}"
     psizes = param_sizes(t["static"])
     if smem_bytes(n, nde, intg.nq, sum(psizes.values()),
                   intg.dtype) > SMEM_LIMIT:
-        return f"nq={intg.nq} does not fit in one block's shared memory", None
+        return f"nq={intg.nq} does not fit in one block's shared memory"
     try:
-        code = trace_energy(intg.f, psizes)
+        energy_code(intg.f, psizes)
     except UnsupportedEnergy as e:
-        return f"the energy does not trace: {e}", None
-    return None, code
+        return f"the energy does not trace: {e}"
+    return None
 
 
-def ad_kernel_route_refusal(intg) -> str | None:
-    """Why the AD kernel cannot assemble this integrator's element
-    Jacobians, or None when it can."""
-    return plan_ad_kernel(intg)[0]
-
-
-def element_jacobian_via_ad_kernel(intg, ublocks, plan=None):
+def element_jacobian_via_ad_kernel(intg, ublocks):
     """``intg.element_matrices(intg.hess_state(ublocks), 0, 0)`` through
-    the AD kernel; raises where the kernel does not apply.  ``plan`` is
-    ``plan_ad_kernel(intg)`` when the caller already made it."""
-    why, code = plan if plan is not None else plan_ad_kernel(intg)
+    the AD kernel; raises where the kernel does not apply."""
+    why = ad_kernel_route_refusal(intg)
     if why is not None:
         raise ValueError(f"AD kernel route unavailable: {why}")
-    return ad_element_jacobian(intg.f, *kernel_inputs(intg, ublocks),
-                               code=code)
+    return ad_element_jacobian(intg.f, *kernel_inputs(intg, ublocks))

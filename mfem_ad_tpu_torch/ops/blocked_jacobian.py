@@ -23,24 +23,154 @@ compiles for sm_90a into ``mfem_ad_tpu_torch/_build/`` and binds through
 ``ctypes``.  The plain PyTorch version (``blocked_element_jacobian_plain``)
 computes the same function with ``torch.matmul``.
 ``blocked_element_jacobian`` runs the plain version for tensors on the CPU
-and the kernel for tensors on a CUDA device.
+and the kernel for tensors on a CUDA device.  ``launch_plan`` chooses the
+kernel's tiles, threads, ring stages and shared memory per shape; the
+kernel checks the plan and refuses what it cannot run.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import weakref
+from dataclasses import dataclass
 
 import torch
 
 from . import nvcc
 from .ad_jacobian import param_sizes
-from .energy_codegen import EnergyCode, UnsupportedEnergy, trace_entries
+from .energy_codegen import (
+    EnergyCode,
+    UnsupportedEnergy,
+    cached_trace,
+    trace_entries,
+)
 from .fused_jacobian import check_operand
 
 HEADERS = ("blocked_jacobian.cuh", "ad_jacobian.cuh")
 # (vdim, sd) the kernel is compiled for: 2D and 3D vector GRAD inputs
 KERNEL_SHAPES = ((2, 2), (3, 3))
+
+# The kernel's fixed shape (csrc/blocked_jacobian.cuh): each thread owns
+# TILE_M rows (e, v, w) x TILE_N columns (i, j) of the block's GEMM.
+TILE_M = TILE_N = 8
+# Threads per block, in the order tried: f32 compiles to at most 168
+# registers a thread (bj::max_threads), so 12 warps fit an SM: two blocks
+# of 192 threads where two fit in shared memory, else one of 384.
+# Each is a multiple of 4 warps per SM, so each of an SM's four schedulers
+# holds as many warps as the others.  f64 (255 registers) runs one block.
+THREAD_CHOICES = {torch.float32: (192, 384, 256, 128),
+                  torch.float64: (256, 128)}
+MAX_COL_TILE = 256  # columns (i, j) per column tile, before widening
+STAGES = 2  # ring slots for Ww, filled by TMA bulk copies
+BAR_BYTES = 128  # the ring's mbarriers (bj::kBarBytes)
+MIN_STAGE_ROWS = 16  # Ww rows (q, a, b) per ring slot, at least
+SMEM_LIMIT = 232_448  # dynamic shared memory one Hopper block may use
+# per block, so that two blocks fit in an SM's 228 KB (1 KB reserved each)
+SMEM_TWO_BLOCKS = 115_712
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How the kernel runs one shape (the fields of ``bj::Plan``)."""
+
+    elem_tile: int  # elements per block
+    col_tile: int  # output columns (i, j) per column tile
+    threads: int  # threads per block
+    stages: int  # Ww ring slots
+    quad_stage: int  # quadrature points per ring slot
+    quad_chunk: int  # points whose entries the block holds at once
+    smem_bytes: int  # dynamic shared memory per block
+
+    @property
+    def row_tile(self) -> int:
+        """Rows (e, v, w) of the block's GEMM, padding included."""
+        return self.threads // (self.col_tile // TILE_N) * TILE_M
+
+    def padded_cols(self, nd: int) -> int:
+        """nd^2 rounded up to whole column tiles."""
+        return -(-nd * nd // self.col_tile) * self.col_tile
+
+
+def lanes_n(col_groups: int) -> int:
+    """Lanes of a warp along the columns (``bj::lanes_n``)."""
+    return min(col_groups & -col_groups, 8)
+
+
+def _col_tile(nd2: int, threads: int, slack: float) -> int | None:
+    """The narrowest column tile that tiles ``threads`` in whole warps of
+    32 // LN row groups x LN column groups, gives every thread one column
+    of the write-out and pads nd^2 at most ``slack`` times as far as tiles
+    of min(nd^2 rounded up to TILE_N, MAX_COL_TILE) do, or None."""
+    base = min(-(-nd2 // TILE_N) * TILE_N, MAX_COL_TILE)
+    limit = slack * -(-nd2 // base) * base
+    for col in range(base, 2 * base + 1, TILE_N):
+        groups = col // TILE_N
+        if (threads % col == 0 and -(-nd2 // col) * col <= limit
+                and threads // groups % (32 // lanes_n(groups)) == 0):
+            return col
+    return None
+
+
+def staged_values(vdim: int, nd: int, elem_tile: int, col_tile: int,
+                  row_tile: int, elem: int) -> int:
+    """Values of the output staged for the write-out (``bj::ring_values``):
+    the block's whole output in A's layout where it is one contiguous run
+    of A (one column tile, nde^2 values a whole number of 16-byte words),
+    written by one TMA bulk copy; else half of the tile's rows, padded by
+    4 values."""
+    nde2 = (vdim * nd) ** 2
+    if nd * nd <= col_tile and nde2 * elem % 16 == 0:
+        return elem_tile * nde2
+    return row_tile // 2 * (col_tile + 4)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(vdim: int, sd: int, nd: int, nq: int,
+                dtype: torch.dtype) -> LaunchPlan:
+    """The kernel's launch plan for element Jacobians of ``vdim`` x ``sd``
+    GRAD inputs on ``nd`` nodes and ``nq`` points, in ``dtype``.
+
+    - the first of THREAD_CHOICES that tiles a column tile in whole warps
+      padding at most 10% more columns (``_col_tile``), else the first
+      that tiles one at all; as many elements as its rows hold (the rest
+      pad the tile); two blocks per SM's shared memory at 192 threads in
+      f32;
+    - ring slots of the fewest whole points that give MIN_STAGE_ROWS rows
+      (one point where those do not fit);
+    - every point's entries resident in shared memory where they fit,
+      else the largest whole-slot chunk of points that fits.
+
+    Raises ValueError for a shape no plan fits."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    vd2, sd2, nd2 = vdim * vdim, sd * sd, nd * nd
+    preferred = next(d for d in range(1, nq + 1)
+                     if nq % d == 0 and (d * sd2 >= MIN_STAGE_ROWS or d == nq))
+    # padding at most 10% more columns where a thread count allows it
+    for threads, slack in [(t, x) for x in (1.1, 2.0)
+                           for t in THREAD_CHOICES[dtype]]:
+        col = _col_tile(nd2, threads, slack)
+        rows = 0 if col is None else threads // (col // TILE_N) * TILE_M
+        be = rows // vd2
+        if be == 0:
+            continue
+        two = dtype == torch.float32 and threads <= 192
+        budget = SMEM_TWO_BLOCKS if two else SMEM_LIMIT
+        per_q = sd2 * rows * elem  # one point's entries for the block
+        for qs in (preferred, 1):  # one point per slot where a slot is big
+            # the ring's mbarriers, the Ww ring (which holds the staged
+            # output once a column tile is done) and the dofs
+            ring = max(STAGES * qs * sd2 * col,
+                       staged_values(vdim, nd, be, col, rows, elem))
+            fixed = BAR_BYTES + (ring + be * vdim * nd) * elem
+            qc = nq
+            if fixed + nq * per_q > budget:
+                qc = max(budget - fixed, 0) // per_q // qs * qs
+            if qc >= qs:
+                return LaunchPlan(be, col, threads, STAGES, qs, qc,
+                                  fixed + qc * per_q)
+    raise ValueError(f"no launch plan fits vdim={vdim}, nd={nd}, nq={nq}")
 
 
 def kernel_source(code: EnergyCode, vdim: int, sd: int) -> str:
@@ -67,9 +197,13 @@ def kernel_source(code: EnergyCode, vdim: int, sd: int) -> str:
         lines += [
             f'extern "C" int bj_launch_{suffix}(const void* ue, '
             "const void* B0, const void* Ww, const void* prm, void* A, "
-            "int64_t ne, int nq, int nd, void* stream) {",
+            "int64_t ne, int nq, int nd, int elem_tile, int col_tile, "
+            "int threads, int stages, int quad_stage, int quad_chunk, "
+            "int64_t smem_bytes, void* stream) {",
+            "  const bj::Plan plan{elem_tile, col_tile, threads, stages, "
+            "quad_stage, quad_chunk, smem_bytes};",
             f"  return bj::launch<{s}, {vdim}, {sd}, Entries>(ue, B0, Ww, "
-            "prm, A, ne, nq, nd, static_cast<cudaStream_t>(stream));",
+            "prm, A, ne, nq, nd, plan, static_cast<cudaStream_t>(stream));",
             "}",
             "",
         ]
@@ -84,8 +218,8 @@ def build_library(code: EnergyCode, vdim: int, sd: int) -> str:
                               kernel_source(code, vdim, sd), HEADERS)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_int] * 8 + [
+    ctypes.c_int64, ctypes.c_void_p]
 
 
 def _library(code: EnergyCode, vdim: int, sd: int):
@@ -94,22 +228,14 @@ def _library(code: EnergyCode, vdim: int, sd: int):
         {"bj_launch_f32": _ARGTYPES, "bj_launch_f64": _ARGTYPES})
 
 
-# energy -> {parameter sizes: its traced entries}.  Tracing the 3D
-# neo-Hookean entries takes milliseconds of host time, as long as a kernel
-# launch at 3D p1, so each energy object is traced once per parameter
-# layout.
 _TRACES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def entries_code(f, psizes: dict) -> EnergyCode:
     """``trace_entries(f, psizes)``, once per energy object and parameter
-    sizes.  Raises ``UnsupportedEnergy`` as ``trace_entries`` does."""
-    key = tuple(sorted(psizes.items()))
-    per_f = _TRACES.setdefault(f, {})
-    code = per_f.get(key)
-    if code is None:
-        code = per_f[key] = trace_entries(f, psizes)
-    return code
+    sizes (``energy_codegen.cached_trace``).  Raises ``UnsupportedEnergy``
+    as ``trace_entries`` does."""
+    return cached_trace(_TRACES, trace_entries, f, psizes)
 
 
 def blocked_element_jacobian_plain(f, ue, B0, W0, wq, params, vdim, sd):
@@ -147,6 +273,19 @@ def blocked_element_jacobian_plain(f, ue, B0, W0, wq, params, vdim, sd):
     Ww = W0 * wq.repeat_interleave(sd * sd)[:, None]
     A = (Hk @ Ww).reshape(ne, vdim, vdim, nd, nd)  # [e, v, w, i, j]
     return A.permute(0, 1, 3, 2, 4).reshape(ne, vdim * nd, vdim * nd)
+
+
+def tiled_factor(W0, wq, sd, plan: LaunchPlan):
+    """The kernel's contraction factor: W0 with the quadrature weights
+    folded into its rows (q, a, b), zero-padded to whole column tiles and
+    laid out tile-major, [column tiles, nq*sd*sd, col_tile], so that every
+    ring slot is one contiguous block."""
+    rows, cols = W0.shape
+    nd = math.isqrt(cols)
+    Ww = torch.zeros((rows, plan.padded_cols(nd)), dtype=W0.dtype,
+                     device=W0.device)
+    Ww[:, :cols] = W0 * wq.repeat_interleave(sd * sd)[:, None]
+    return Ww.reshape(rows, -1, plan.col_tile).permute(1, 0, 2).contiguous()
 
 
 def blocked_element_jacobian(f, ue, B0, W0, wq, params, vdim, sd):
@@ -190,8 +329,8 @@ def blocked_element_jacobian(f, ue, B0, W0, wq, params, vdim, sd):
                     device=ue.device)
     if ne == 0:
         return A
-    # fold the element-shared quadrature weights into W0's rows
-    Ww = (W0 * wq.repeat_interleave(sd * sd)[:, None]).contiguous()
+    plan = launch_plan(vdim, sd, nd, nq, ue.dtype)
+    Ww = tiled_factor(W0, wq, sd, plan)
     prm = (torch.cat([params[k] for k, _ in code.param_sizes], dim=1)
            .contiguous() if code.n_params else None)
     lib = _library(code, vdim, sd)
@@ -203,9 +342,10 @@ def blocked_element_jacobian(f, ue, B0, W0, wq, params, vdim, sd):
         err = launch(
             ue.data_ptr(), B0.data_ptr(), Ww.data_ptr(),
             None if prm is None else prm.data_ptr(), A.data_ptr(), ne, nq,
-            nd, stream,
+            nd, plan.elem_tile, plan.col_tile, plan.threads, plan.stages,
+            plan.quad_stage, plan.quad_chunk, plan.smem_bytes, stream,
         )
-    if err != 0:  # also where one point chunk exceeds the shared memory
+    if err != 0:  # also where the kernel refuses the plan
         raise RuntimeError(
             f"blocked_jacobian kernel launch failed: CUDA error {err}")
     blocked_element_jacobian.launches += 1

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import math
 import numbers
+import weakref
 from dataclasses import dataclass
 
 import torch
@@ -462,3 +463,23 @@ def trace_entries(f, param_sizes: dict,
     return EnergyCode(source=source, name=name, n_input=n,
                       param_sizes=sizes, n_params=n_params,
                       n_ops=len(lines))
+
+
+def cached_trace(cache: weakref.WeakKeyDictionary, trace, f,
+                 param_sizes: dict) -> EnergyCode:
+    """``trace(f, param_sizes)`` once per energy object and parameter
+    sizes: tracing takes milliseconds of host time, as long as a kernel
+    launch.  ``cache`` maps energy -> {sizes: code or refusal}; an energy
+    that does not trace raises ``UnsupportedEnergy`` again on every call
+    without being traced again."""
+    key = tuple(sorted(param_sizes.items()))
+    per_f = cache.setdefault(f, {})
+    if key not in per_f:
+        try:
+            per_f[key] = trace(f, param_sizes)
+        except UnsupportedEnergy as e:
+            per_f[key] = e
+    code = per_f[key]
+    if isinstance(code, UnsupportedEnergy):
+        raise UnsupportedEnergy(str(code))
+    return code

@@ -89,6 +89,9 @@ def kernel_route_refusal(intg) -> str | None:
     ``uses_blocked_kernel``, else full-W) cannot assemble this integrator's
     element Jacobians, or None when it can."""
     t = intg.tables
+    if intg.vector_fn:
+        return ("vector integrands (ADVectorFunction) have no closed "
+                "Hessian entries: the state is the Jacobian of F")
     if not _tables_on_cuda(intg):
         return "the kernel runs on CUDA tables only"
     if intg.f.hessian_closed_entries is None:

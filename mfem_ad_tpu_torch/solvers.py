@@ -1,9 +1,10 @@
-"""Matrix-free preconditioned CG and an MFEM-NewtonSolver-style Newton.
+"""Matrix-free preconditioned CG and GMRES, and an MFEM-NewtonSolver-style
+Newton.
 
-PyTorch counterpart of ``mfem_ad_tpu.solvers`` (``cg``, ``newton`` with
-``lin_solver="cg"``).  ``newton`` solves ``form.mult(x) = b``: it solves
-J c = r with r = mult(x) - b, updates x <- x - c, and converges on
-||r|| <= max(rel_tol*||r0||, abs_tol).
+PyTorch counterpart of ``mfem_ad_tpu.solvers`` (``cg``, ``gmres``,
+``newton`` with ``lin_solver="cg"`` or ``"gmres"``).  ``newton`` solves
+``form.mult(x) = b``: it solves J c = r with r = mult(x) - b, updates
+x <- x - c, and converges on ||r|| <= max(rel_tol*||r0||, abs_tol).
 """
 
 from __future__ import annotations
@@ -85,6 +86,93 @@ def cg(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
     return x * bsafe, int(k)
 
 
+def gmres(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
+          restart=50):
+    """Restarted, left-preconditioned GMRES with Givens rotations and
+    guarded divisions.
+
+    Solves for b/||b||; ``M`` approximates A^-1 and the monitored residual
+    is the preconditioned one (as in MFEM's GMRESSolver).  Each Arnoldi
+    cycle orthogonalises by classical Gram-Schmidt twice; a zero Arnoldi
+    norm is a happy breakdown that ends the cycle, and a zero denominator
+    anywhere stops progress instead of poisoning the iterate.  A restart
+    cycle that improves the residual by less than 0.1% ends the solve.
+
+    Returns (x, iterations).
+    """
+    dt, dev = b.dtype, b.device
+    n = b.shape[0]
+    norm_b = torch.linalg.vector_norm(b)
+    bscale = torch.where(norm_b == 0, 1.0, norm_b)
+    bn = b / bscale
+    if M is None:
+        M = lambda v: v  # noqa: E731
+    x = torch.zeros_like(b) if x0 is None else x0 / bscale
+    target = max(tol, float(atol / bscale))
+    m = int(max(1, min(restart, maxiter)))
+
+    def cycle(x):
+        """One Arnoldi cycle from iterate x; returns (x', res, its)."""
+        r0 = M(bn - matvec(x))
+        beta = torch.linalg.vector_norm(r0)
+        V = torch.zeros((m + 1, n), dtype=dt, device=dev)
+        V[0] = _safe_div(r0, beta)
+        H = torch.zeros((m + 1, m), dtype=dt, device=dev)
+        cs = torch.ones(m, dtype=dt, device=dev)
+        sn = torch.zeros(m, dtype=dt, device=dev)
+        g = torch.zeros(m + 1, dtype=dt, device=dev)
+        g[0] = beta
+        res = float(beta)
+        j = 0
+        while j < m and res > target:
+            w = M(matvec(V[j]))
+            # CGS2: classical Gram-Schmidt, twice (orthogonality to ~eps)
+            h = V[:j + 1] @ w
+            w = w - h @ V[:j + 1]
+            h2 = V[:j + 1] @ w
+            w = w - h2 @ V[:j + 1]
+            hn = torch.linalg.vector_norm(w)
+            hcol = torch.zeros(m + 1, dtype=dt, device=dev)
+            hcol[:j + 1] = h + h2
+            hcol[j + 1] = hn
+            for i in range(j):  # the previous rotations
+                hi, hi1 = hcol[i].clone(), hcol[i + 1].clone()
+                hcol[i] = cs[i] * hi + sn[i] * hi1
+                hcol[i + 1] = -sn[i] * hi + cs[i] * hi1
+            hj, hj1 = hcol[j].clone(), hcol[j + 1].clone()
+            den = torch.sqrt(hj * hj + hj1 * hj1)
+            cs[j] = torch.where(den == 0, 1.0, _safe_div(hj, den))
+            sn[j] = _safe_div(hj1, den)
+            hcol[j] = den
+            hcol[j + 1] = 0.0
+            gj = g[j].clone()
+            g[j] = cs[j] * gj
+            g[j + 1] = -sn[j] * gj
+            H[:, j] = hcol
+            res = float(torch.abs(sn[j] * gj))
+            V[j + 1] = _safe_div(w, hn)
+            j += 1
+            if float(hn) == 0:
+                break  # happy breakdown
+        # back-substitute the j x j triangular system R y = g
+        y = torch.zeros(m, dtype=dt, device=dev)
+        for i in range(j - 1, -1, -1):
+            y[i] = _safe_div(g[i] - H[i] @ y, H[i, i])
+        return x + y @ V[:m], res, j
+
+    res_prev = np.inf
+    total = 0
+    while True:
+        x, res, jdone = cycle(x)
+        total += max(jdone, 1)
+        # a cycle that made < 0.1% progress is at its floor
+        if (res <= target or total >= maxiter or jdone == 0
+                or res > res_prev * (1.0 - 1e-3)):
+            break
+        res_prev = res
+    return x * bscale, total
+
+
 # ---------------------------------------------------------------------------
 # Newton
 # ---------------------------------------------------------------------------
@@ -95,7 +183,7 @@ class NewtonOptions:
     abs_tol: float = 1e-12
     rel_tol: float = 0.0
     max_iter: int = 100
-    lin_solver: str = "cg"
+    lin_solver: str = "cg"  # "cg" or "gmres"
     lin_tol: float = 1e-12
     lin_maxiter: int = 2000
     # cg's floor exit: iterations per required 1% drop of the best
@@ -111,7 +199,7 @@ class NewtonResult:
     iterations: int
     final_norm: float
     history: list = field(default_factory=list)
-    lin_iters: list = field(default_factory=list)  # CG iterations per step
+    lin_iters: list = field(default_factory=list)  # Krylov its per step
 
 
 def _residual_norm(form, x, b) -> float:
@@ -121,7 +209,7 @@ def _residual_norm(form, x, b) -> float:
 
 def _direction(form, x, b, opts: NewtonOptions):
     """Newton direction c of J c = r (residual, Jacobian state, Krylov
-    solve); returns (c, CG iterations)."""
+    solve); returns (c, Krylov iterations)."""
     r = torch.where(form.ess_mask, 0.0, form.mult(x) - b)
     state = form.grad_state(x)
     M = None
@@ -130,10 +218,11 @@ def _direction(form, x, b, opts: NewtonOptions):
         d = torch.abs(form.grad_diag(state))
         safe = torch.where(d < 1e-30, 1.0, d)
         M = lambda v: v / safe  # noqa: E731
-    return cg(
-        lambda v: form.grad_mult(state, v), r, M=M, tol=opts.lin_tol,
-        maxiter=opts.lin_maxiter, stall_window=opts.lin_stall_window,
-    )
+    mv = lambda v: form.grad_mult(state, v)  # noqa: E731
+    if opts.lin_solver == "gmres":
+        return gmres(mv, r, M=M, tol=opts.lin_tol, maxiter=opts.lin_maxiter)
+    return cg(mv, r, M=M, tol=opts.lin_tol, maxiter=opts.lin_maxiter,
+              stall_window=opts.lin_stall_window)
 
 
 def _apply_step(form, x, c, b, norm):
@@ -156,10 +245,12 @@ def _apply_step(form, x, c, b, norm):
 
 def newton(form, x0, b=None, opts: NewtonOptions | None = None):
     """MFEM-NewtonSolver-style damped Newton on ``form.mult(x) = b`` with
-    a Jacobi-preconditioned matrix-free CG direction."""
+    a matrix-free Krylov direction (``opts.lin_solver``: "cg" or
+    "gmres"), optionally Jacobi-preconditioned."""
     opts = opts or NewtonOptions()
-    if opts.lin_solver != "cg":
-        raise NotImplementedError(f"lin_solver={opts.lin_solver!r}: only 'cg'")
+    if opts.lin_solver not in ("cg", "gmres"):
+        raise NotImplementedError(
+            f"lin_solver={opts.lin_solver!r}: only 'cg' and 'gmres'")
     if opts.preconditioner not in (None, "jacobi"):
         raise ValueError(f"unknown preconditioner {opts.preconditioner!r}")
     x = x0

@@ -415,6 +415,39 @@ def test_auto_takes_ad_kernel_where_it_applies_else_two_stage(monkeypatch):
     assert taken == [1]  # the refused energy went to two-stage
 
 
+def test_energy_is_traced_once_per_energy_object(monkeypatch):
+    """The AD route looks the energy's trace up: a second refusal check or
+    element_jacobians call on one integrator does not trace it again, and
+    an energy that does not trace is not traced again either."""
+    monkeypatch.setattr(adj, "_tables_on_cuda", lambda intg: True)
+    calls = []
+    real = adj.trace_energy
+    monkeypatch.setattr(adj, "trace_energy",
+                        lambda f, sizes: calls.append(f) or real(f, sizes))
+    _, pi, u = _pair("minimal_surface", 3, 2)
+    f = pad.ADFunction(2, _minimal_surface(0.05))
+    intg = PIntegrator(f, pi.spaces, pi.modes, device="cpu",
+                       tables=pi.tables)
+    ut = vector_from_numpy(u, "cpu", F64)
+    assert adj.ad_kernel_route_refusal(intg) is None
+    A = intg.element_jacobians([ut])
+    assert torch.equal(A, intg.element_jacobians([ut], route="kernel_ad"))
+    assert calls == [f]
+    assert adj.energy_code(f, {}) is adj.energy_code(f, {})
+    assert calls == [f]
+    dot = pad.ADFunction(2, lambda x, p: torch.dot(x, x))
+    pi_dot = PIntegrator(dot, pi.spaces, pi.modes, device="cpu",
+                         tables=pi.tables)
+    for _ in range(2):
+        assert "torch.dot" in adj.ad_kernel_route_refusal(pi_dot)
+    assert calls == [f, dot]
+
+
+def test_ad_wrapper_takes_no_trace_argument():
+    params = inspect.signature(adj.ad_element_jacobian).parameters
+    assert list(params) == ["f", "ue", "R", "W", "wq", "params"]
+
+
 def test_entry_points_default_to_the_card():
     for fn in (PIntegrator.__init__, NonlinearForm.__init__,
                BlockNonlinearForm.__init__, pex1.build, pex1.solve,

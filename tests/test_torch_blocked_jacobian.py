@@ -242,6 +242,66 @@ def test_kernel_source_and_library_name():
     assert bj.entries_code(f, PARAMS) is bj.entries_code(f, dict(PARAMS))
 
 
+# (dim, order): 2D p2/p3 and 3D p1/p2/p3, the shapes the kernel serves
+PLAN_SHAPES = [(2, 2), (2, 3), (3, 1), (3, 2), (3, 3)]
+
+
+def _shape(dim, order):
+    """(nd, nq) of a GRAD|VECTOR integrator at the default rule."""
+    m = PM.make_cartesian_2d(1, 1) if dim == 2 else PM.make_cartesian_3d(
+        1, 1, 1)
+    pi = PIntegrator(pad.LinearElasticityEnergy(dim, 1.0, 1.0),
+                     [PFESpace(m, order, vdim=dim)],
+                     [PADEval.GRAD | PADEval.VECTOR], device="cpu")
+    return pi.nd[0], pi.nq
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dim,order", PLAN_SHAPES)
+def test_launch_plan_fits_the_card_and_the_kernel_checks(dim, order, dtype):
+    """The plan the wrapper passes satisfies every check of
+    ``bj::launch``: whole warps of LM x LN groups, at least 4 warps, the
+    232,448 bytes a block may use, whole ring slots of quadrature points,
+    and the kernel's own shared-memory formula."""
+    nd, nq = _shape(dim, order)
+    p = bj.launch_plan(dim, dim, nd, nq, dtype)
+    elem = torch.empty((), dtype=dtype).element_size()
+    groups = p.col_tile // bj.TILE_N
+    assert p.col_tile % bj.TILE_N == 0
+    assert p.threads % 32 == 0 and p.threads >= 128
+    assert p.threads <= max(bj.THREAD_CHOICES[dtype])
+    assert p.threads % groups == 0
+    assert p.threads // groups % (32 // bj.lanes_n(groups)) == 0
+    assert 0 < p.elem_tile * dim * dim <= p.row_tile
+    assert p.row_tile - p.elem_tile * dim * dim < dim * dim  # padding only
+    assert 2 <= p.stages <= 4
+    assert nq % p.quad_stage == 0
+    assert p.quad_chunk % p.quad_stage == 0 and p.quad_chunk <= nq
+    assert p.threads % p.col_tile == 0  # one write-out column per thread
+    sd2 = dim * dim
+    nde2 = (dim * nd) ** 2
+    contiguous = nd * nd <= p.col_tile and nde2 * elem % 16 == 0
+    staged = (p.elem_tile * nde2 if contiguous
+              else p.row_tile // 2 * (p.col_tile + 4))
+    ring = max(p.stages * p.quad_stage * sd2 * p.col_tile, staged)
+    assert p.smem_bytes == bj.BAR_BYTES + elem * (
+        ring + p.quad_chunk * sd2 * p.row_tile + p.elem_tile * dim * nd)
+    assert p.smem_bytes <= bj.SMEM_LIMIT == 232_448
+    assert p.padded_cols(nd) >= nd * nd
+    assert p.padded_cols(nd) % p.col_tile == 0
+
+
+@pytest.mark.parametrize("dim,order", [(2, 2), (3, 1), (3, 2)])
+def test_launch_plan_computes_entries_once_per_element_on_the_main_path(
+        dim, order):
+    """At 2D p2, 3D p1 and 3D p2 in f32 the entries of an element are
+    computed once per call: resident for every column tile, or one column
+    tile for every chunk of points."""
+    nd, nq = _shape(dim, order)
+    p = bj.launch_plan(dim, dim, nd, nq, torch.float32)
+    assert p.quad_chunk == nq or p.padded_cols(nd) == p.col_tile
+
+
 # ---------------------------------------------------------------------------
 # Routing and the wrapper
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ also runs on a machine without them:
 Tolerance: 1e-12 * max|A| in f64 and 1e-5 * max|A| in f32 (the kernel and
 cuBLAS sum in different orders; no TF32 anywhere)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -279,3 +281,35 @@ def test_blocked_wrapper_rejects_bad_operands_on_card(cuda):
     with pytest.raises(ValueError, match="dtype"):
         bj.blocked_element_jacobian(f, ue.half(), B0, W0, w, params, 3, 3)
     assert bj.blocked_element_jacobian.launches == before
+
+
+def test_blocked_kernel_refuses_a_plan_it_cannot_run(cuda):
+    """The kernel checks the launch plan it is given and returns
+    cudaErrorInvalidValue (1) without launching; the wrapper's own plan
+    runs."""
+    intg, u = _vector_integrator("neohookean", 3, 1, (2, 2, 2),
+                                 torch.float32, cuda)
+    ue, B0, W0, w, params = bj.blocked_inputs(intg, [u])
+    nd, nq, ne = intg.nd[0], intg.nq, ue.shape[0]
+    plan = bj.launch_plan(3, 3, nd, nq, torch.float32)
+    code = bj.entries_code(intg.f, bj.param_sizes(params))
+    lib = bj._library(code, 3, 3)
+    Ww = torch.zeros((nq * 9, plan.padded_cols(nd)), device=cuda)
+    prm = torch.cat([params["lambda"], params["mu"]], dim=1).contiguous()
+    A = torch.zeros((ne, 3 * nd, 3 * nd), device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(**changes):
+        p = dataclasses.replace(plan, **changes)
+        return lib.bj_launch_f32(
+            ue.data_ptr(), B0.data_ptr(), Ww.data_ptr(), prm.data_ptr(),
+            A.data_ptr(), ne, nq, nd, p.elem_tile, p.col_tile, p.threads,
+            p.stages, p.quad_stage, p.quad_chunk, p.smem_bytes, stream)
+
+    for bad in (dict(threads=plan.threads + 32), dict(stages=5),
+                dict(quad_stage=plan.quad_stage + 1),
+                dict(smem_bytes=plan.smem_bytes - 4),
+                dict(elem_tile=plan.row_tile)):
+        assert launch(**bad) == 1, bad
+    assert launch() == 0
+    torch.cuda.synchronize()

@@ -63,6 +63,69 @@ def test_cartesian_mesh_equal(dim, n, refs):
     assert mj.uniform_jacobian and mp.uniform_jacobian
 
 
+# MFEM v1.0 files: two quads, or a quad and a triangle sharing an edge
+_QUADS = """MFEM mesh v1.0
+
+dimension
+2
+
+elements
+2
+1 3 0 1 4 3
+2 3 1 2 5 4
+
+boundary
+6
+1 1 0 1
+1 1 1 2
+2 1 2 5
+3 1 5 4
+3 1 4 3
+4 1 3 0
+
+vertices
+6
+2
+0 0
+1 0
+2 0
+0 1
+1 1.5
+2 1
+"""
+_MIXED = _QUADS.replace("2 3 1 2 5 4", "2 2 1 2 4")
+_CURVED = _QUADS.split("vertices")[0] + """vertices
+6
+
+nodes
+FiniteElementSpace
+FiniteElementCollection: H1_2D_P2
+VDim: 2
+Ordering: 1
+"""
+
+
+def test_mfem_mesh_reader_matches_jax_on_a_straight_file(tmp_path):
+    path = tmp_path / "quads.mesh"
+    path.write_text(_QUADS)
+    mj, mp = JM.read_mfem_mesh(str(path)), PM.read_mfem_mesh(str(path))
+    assert mp.geom == mj.geom == PM.SQUARE
+    for name in ("vertices", "elements", "attributes", "bdr_elements",
+                 "bdr_attributes"):
+        _same(getattr(mj, name), getattr(mp, name))
+
+
+@pytest.mark.parametrize("text,cause", [
+    (_MIXED, "mixed meshes are not supported"),
+    (_CURVED, "curved meshes are not supported"),
+])
+def test_mfem_mesh_reader_names_what_it_refuses(tmp_path, text, cause):
+    path = tmp_path / "refused.mesh"
+    path.write_text(text)
+    with pytest.raises(ValueError, match=cause):
+        PM.read_mfem_mesh(str(path))
+
+
 @pytest.mark.parametrize(
     "dim,order,vdim", [(2, 1, 2), (2, 2, 2), (2, 3, 1), (3, 1, 3), (3, 2, 1)]
 )
