@@ -2,21 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from the sources in this checkout (one
-nvcc per source, all started together) and drives the port's main paths
-through their public entry points:
+Builds the hand-written CUDA element-Jacobian kernel from the sources in
+this checkout (one nvcc per generated source, all started together): one
+GEMM template, csrc/blocked_jacobian.cuh, instantiated three ways: closed
+entries against the full W (vdim 1, sd n: the full-W kernel), the
+nested-dual AD entries against the full W (the AD kernel), closed entries
+against the blocked W0 (the blocked kernel).  Then it drives the port's
+main paths through their public entry points:
 
-  A. the closed-entries element-Jacobian kernel against its plain PyTorch
+  A. the full-W closed-entries instantiation against its plain PyTorch
      version at 3x3 and 511x509 Q1 elements, f64 and f32, neo-Hookean and
      linear elasticity;
   B. headline assembly: 512x512 Q1 quads, vdim=2, neo-Hookean, f32
      (262,144 elements) through ``ADBlockIntegrator.element_jacobians``
-     with the default route, then kernel and plain timings;
+     with the default route (the full-W instantiation), then kernel and
+     plain timings;
   C. Newton–CG (Jacobi-preconditioned, matrix-free) on the same 512x512
      mesh in f64 with ex3's boundary conditions and a scaled load, and the
      ex3 model at its default size;
-  D. the generic AD element-Jacobian kernel (energies code-generated and
-     differentiated by nested dual numbers):
+  D. the AD instantiation (energies code-generated and differentiated by
+     nested dual numbers):
      D1 against its plain PyTorch version at 3x3 and 511x509, f64 and f32,
         for Diffusion at p1 and p2, Mass, neo-Hookean on route="kernel_ad"
         (also against the closed-entries kernel) and a minimal-surface
@@ -24,36 +29,44 @@ through their public entry points:
         is refused by name and the default route takes two-stage;
      D2 main path: ex1 Poisson at 512x512 Q1 and Q2, f32, through
         ``element_jacobians`` with the default route, and the headline
-        neo-Hookean on route="kernel_ad" (the pure-AD rate);
+        neo-Hookean and 2D p2 vector neo-Hookean at 512x512 (n=4, nde=18)
+        on route="kernel_ad";
      D3 kernel, plain, end-to-end and two-stage timings for each D2
         configuration, beside each one's bound and cuBLAS's time for the
         contraction GEMM alone;
-  E. the blocked-W0 element-Jacobian kernel (closed entries code-generated,
-     contracted per vdim-block pair with W0; 2D p>=2 and 3D):
+     H  the host work around three ``element_jacobians`` calls (headline
+        full-W and AD, Poisson Q2): CUDA-event time minus kernel device
+        time, with the operands derived from the tables kept across calls
+        and with them rebuilt on every call;
+  E. the blocked-W0 instantiation (closed entries contracted per
+     vdim-block pair with W0; 2D p>=2 and 3D):
      E1 against its plain PyTorch version in f64 and f32, neo-Hookean and
         linear elasticity, at 2D p2 3x3 and 511x509, 2D p3 3x3, 3D p1 3^3,
         63x64x65 and 29x31x33, 3D p2 3x2x2 and 13x11x9, and 3D p3 2^3 (the
         small ones also against the two-stage route), with min det F > 0.2
-        asserted;
+        asserted; and the two full-W instantiations at 37x29 and
+        13x11x9, element counts that are multiples of none of their
+        element tiles, f64 and f32;
      E2 main path: 2D p2 neo-Hookean 512x512, 3D p1 neo-Hookean 64^3 and
         ex3's 3D p2 linear elasticity at 32^3 (``models.elasticity``), f32,
         through ``element_jacobians`` with the default route;
      E3 kernel, plain, two-stage and bound for each E2 configuration, and
         cuBLAS's time for the contraction GEMM alone as a yardstick, beside
-        the kernel's launch plan, its registers and spills, and the
-        register-bank conflicts of its main loop (``cuobjdump -sass``).
+        the kernel's launch plan; every instantiation's registers and
+        spills, and the register-bank conflicts of their main loops
+        (``cuobjdump -sass``).
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
 log also gives CUDA-event times of whole calls, host work included.
 
 Every phase checks its results and raises on failure.  Each kernel's
-launch count is reset just before its main path (B and C for the closed-
-entries kernel, D2 for the AD kernel) and read just after.  The last line
-of output is a JSON object naming the device; the line before it lists the
-kernels with their launch counts, timings and bounds.  Phase E's launch
-count is reset just before E2 and read just after.  There is no CPU
-path: without a CUDA device the script exits with an error.
+launch count is reset just before its main path (B and C for the full-W
+instantiation, D2 for the AD one, E2 for the blocked one) and read just
+after.  The last line of output is a JSON object naming the device; the
+line before it lists the kernels with their launch counts, timings and
+bounds.  There is no CPU path: without a CUDA device the script exits
+with an error.
 """
 
 from __future__ import annotations
@@ -145,10 +158,14 @@ D1_SIZES = ((3, 3), (511, 509))  # a ragged tile, and full width
 # the trace of every energy D runs: (energy, parameter sizes)
 AD_TRACES = (
     (DiffusionEnergy(2), {}),
+    (DiffusionEnergy(3), {}),
     (MassEnergy(1), {}),
     (NeoHookeanEnergy(2, 1.0, 1.0), {"lambda": 1, "mu": 1}),
     (MinimalSurfaceEnergy(), {}),
 )
+# the closed-entries energies of the full-W instantiation (vdim = 1, sd = 4)
+FULL_W_ENERGIES = (NeoHookeanEnergy(2, 1.0, 1.0),
+                   LinearElasticityEnergy(2, 1.0, 1.0))
 
 
 def log(msg: str):
@@ -347,7 +364,8 @@ def ptxas_lines(report: str) -> list[str]:
     return [f"{n}: {r}" for n, (_, r) in zip(names, out)]
 
 
-BLOCKED_PTXAS: list[str] = []  # the blocked kernels' registers and spills
+# registers and spills of every instantiation of the GEMM kernel
+GEMM_PTXAS: list[str] = []
 
 
 def sass_bank_report(lib_path: str) -> list[str]:
@@ -392,10 +410,15 @@ def sass_bank_report(lib_path: str) -> list[str]:
 
 def build_all():
     """Compile every kernel source at once, one nvcc each."""
-    jobs = {"fused_jacobian.cu": fj.build_library}
+    jobs = {}
+    for f in FULL_W_ENERGIES:
+        code = bj.entries_code(f, {"lambda": 1, "mu": 1})
+        jobs[f"blocked_jacobian.cuh (full W) + {type(f).__name__}"] = (
+            lambda code=code: bj.build_library(code, 1, 4))
     for f, sizes in AD_TRACES:
         code = adj.energy_code(f, sizes)
-        jobs[f"ad_jacobian.cuh + {type(f).__name__}"] = (
+        jobs[f"blocked_jacobian.cuh (AD) + {type(f).__name__}"
+             f"({getattr(f, 'dim', 1)})"] = (
             lambda code=code: adj.build_library(code))
     for f in BLOCKED_ENERGIES:
         code = bj.entries_code(f, {"lambda": 1, "mu": 1})
@@ -418,7 +441,7 @@ def build_all():
         for line in ptxas_lines(report):
             log(f"  ptxas {line}")
             if "blocked_kernel" in line:
-                BLOCKED_PTXAS.append(line)
+                GEMM_PTXAS.append(f"{k}: {line}")
 
 
 # ---------------------------------------------------------------------------
@@ -515,12 +538,19 @@ def d2_configs(dev):
         out[f"poisson_q{order}"] = (intg, u, "auto")
     intg, u = headline_integrator(dev)
     out["neohookean_q1_ad"] = (intg, u, "kernel_ad")
+    # 2D p2 vector (n=4, nde=18; A is 340 MB in f32): the closed entries
+    # would take the blocked-W0 kernel, so the AD route is asked for
+    fes = FESpace(M.make_cartesian_2d(HEADLINE_N, HEADLINE_N), 2, vdim=2)
+    intg = ADBlockIntegrator(NeoHookeanEnergy(2, 1.0, 1.0), [fes], [MODE],
+                             device=dev, dtype=torch.float32)
+    u = seeded(fes.ndof, AMP_BLOCKED / HEADLINE_N, 14, torch.float32, dev)
+    out["neohookean_p2_ad"] = (intg, u, "kernel_ad")
     return out
 
 
 def phase_d2_main(configs):
     """The AD kernel's main path: Poisson Q1/Q2 on the default route, the
-    headline neo-Hookean on the AD kernel."""
+    headline and 2D p2 vector neo-Hookean on the AD kernel."""
     results = {}
     for name, (intg, u, route) in configs.items():
         A = intg.element_jacobians([u], route=route)
@@ -637,7 +667,7 @@ def phase_d3_timing(configs, main):
                            sum(adj.param_sizes(args[4]).values()),
                            torch.float32)
         k_ms = device_ms(lambda: adj.ad_element_jacobian(intg.f, *args),
-                         "jacobian_kernel", min(k1, k2))
+                         "blocked_kernel", min(k1, k2))
         p_ms = device_ms(
             lambda: adj.ad_element_jacobian_plain(intg.f, *args),
             None, min(p1, p2))
@@ -745,6 +775,74 @@ def phase_e1(dev):
                 worst = max(worst, rel)
                 del intg, u, A, A_plain
     log(f"phase E1 ok: worst relative error {worst:.3e}")
+
+
+# E1 cases of the full-W instantiations (vdim = 1, sd = n): (label, energy
+# factory, dim, order, mode, vdim, mesh dims, route).  37x29 = 1,073 and
+# 13x11x9 = 1,287 elements are multiples of none of their launch plans'
+# element tiles (f32 / f64: 192 / 256 at the headline and 3D Q1, 768 /
+# 1,024 at Poisson Q1, 128 at Q2, 64 at 2D p2 vector and 3D Q2).
+E1_FULL_W_CASES = (
+    ("full-W NeoHookean 2D p1", lambda: NeoHookeanEnergy(2, 1.0, 1.0), 2,
+     1, MODE, 2, (37, 29), "kernel"),
+    ("full-W LinearElasticity 2D p1",
+     lambda: LinearElasticityEnergy(2, 1.0, 1.0), 2, 1, MODE, 2, (37, 29),
+     "kernel"),
+    ("AD NeoHookean 2D p1", lambda: NeoHookeanEnergy(2, 1.0, 1.0), 2, 1,
+     MODE, 2, (37, 29), "kernel_ad"),
+    ("AD NeoHookean 2D p2", lambda: NeoHookeanEnergy(2, 1.0, 1.0), 2, 2,
+     MODE, 2, (37, 29), "kernel_ad"),
+    ("AD Diffusion 2D Q1", lambda: DiffusionEnergy(2), 2, 1, ADEval.GRAD,
+     1, (37, 29), "kernel_ad"),
+    ("AD Diffusion 2D Q2", lambda: DiffusionEnergy(2), 2, 2, ADEval.GRAD,
+     1, (37, 29), "kernel_ad"),
+    ("AD Diffusion 3D Q1", lambda: DiffusionEnergy(3), 3, 1, ADEval.GRAD,
+     1, (13, 11, 9), "kernel_ad"),
+    ("AD Diffusion 3D Q2", lambda: DiffusionEnergy(3), 3, 2, ADEval.GRAD,
+     1, (13, 11, 9), "kernel_ad"),
+)
+
+
+def phase_e1_full_w(dev):
+    """The full-W instantiations (closed entries and AD) against their
+    plain versions at ragged element counts, f64 and f32."""
+    worst = 0.0
+    for label, make, dim, order, mode, vdim, dims, route in E1_FULL_W_CASES:
+        m = M.make_cartesian_2d(*dims) if dim == 2 else M.make_cartesian_3d(
+            *dims)
+        fes = FESpace(m, order, vdim=vdim)
+        for dtype in (torch.float64, torch.float32):
+            intg = ADBlockIntegrator(make(), [fes], [mode], device=dev,
+                                     dtype=dtype)
+            u = seeded(fes.ndof, AMP_BLOCKED / max(dims), 15, dtype, dev)
+            wrapper, plain = (
+                (fj.fused_element_jacobian, fj.fused_element_jacobian_plain)
+                if route == "kernel" else
+                (adj.ad_element_jacobian, adj.ad_element_jacobian_plain))
+            if fj.uses_blocked_kernel(intg) and route == "kernel":
+                raise AssertionError(f"{label}: the blocked kernel serves")
+            before = wrapper.launches
+            A = intg.element_jacobians([u], route=route)
+            A_plain = plain(intg.f, *fj.kernel_inputs(intg, [u]))
+            torch.cuda.synchronize()
+            if wrapper.launches != before + 1:
+                raise RuntimeError(f"{label}: launch not counted")
+            nde = vdim * intg.nd[0]
+            if (tuple(A.shape) != (fes.mesh.num_elements, nde, nde)
+                    or not bool(torch.isfinite(A).all())):
+                raise AssertionError(f"{label}: bad output {A.shape}")
+            scale = float(A_plain.abs().max())
+            rel = float((A - A_plain).abs().max()) / scale
+            plan = bj.launch_plan(1, intg.n_input, nde, intg.nq, dtype)
+            log(f"E1 {label} {'x'.join(map(str, dims))} {str(dtype)[6:]} "
+                f"(n={intg.n_input}, nde={nde}, element tile "
+                f"{plan.elem_tile}): |A-plain| = {rel:.3e} max|A| "
+                f"(tol {TOL[dtype]:.0e})")
+            if not rel <= TOL[dtype]:
+                raise AssertionError(f"{label}: kernel disagrees")
+            worst = max(worst, rel)
+            del intg, u, A, A_plain
+    log(f"phase E1 full-W ok: worst relative error {worst:.3e}")
 
 
 def e2_configs(dev):
@@ -874,6 +972,26 @@ def phase_e3_timing(configs, main):
     return rows
 
 
+def host_work(calls):
+    """Event time minus kernel device time of ``element_jacobians`` calls:
+    with the operands derived from the tables (B0 from R, the weighted
+    tile-major factor) built once and kept, and with them built again on
+    every call (``blocked_jacobian.DERIVED`` cleared first, as every call
+    did before the cache), in turns: kept, rebuilt, rebuilt, kept."""
+    for name, (fn, dev_ms) in calls.items():
+        def rebuilt(fn=fn):
+            bj.DERIVED.clear()
+            return fn()
+
+        k1, r1, r2, k2 = (cuda_ms(fn), cuda_ms(rebuilt), cuda_ms(rebuilt),
+                          cuda_ms(fn))
+        kept, rb = min(k1, k2), min(r1, r2)
+        log(f"H {name}: events {k1:.4f}/{k2:.4f} ms kept, {r1:.4f}/"
+            f"{r2:.4f} ms rebuilt per call; kernel device {dev_ms:.4f} ms; "
+            f"host work {kept - dev_ms:.4f} ms kept, {rb - dev_ms:.4f} ms "
+            "rebuilt")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -915,7 +1033,7 @@ def main() -> int:
                        intg.n_input, 8, 2, torch.float32)
     args = fj.kernel_inputs(intg, [u])
     k_dev = device_ms(lambda: fj.fused_element_jacobian(intg.f, *args),
-                      "fused_jacobian_kernel", k_ms)
+                      "blocked_kernel", k_ms)
     p_dev = device_ms(
         lambda: fj.fused_element_jacobian_plain(intg.f, *args), None, p_ms)
     lib_b = contraction_gemm_ms(args[0].shape[0], intg.nq, intg.n_input, 8,
@@ -951,8 +1069,21 @@ def main() -> int:
     del main_out
     log("phase D3 ok")
     head = rows["neohookean_q1_ad"]
+    q2, _, _ = configs["poisson_q2"]
+    u_q2 = configs["poisson_q2"][1]
+    host_work({
+        "headline, full-W (route kernel)": (
+            lambda: intg.element_jacobians([u], route="kernel"), k_dev),
+        "headline, AD (route kernel_ad)": (
+            lambda: intg.element_jacobians([u], route="kernel_ad"),
+            head["ms"]),
+        "Poisson Q2, AD (route auto)": (
+            lambda: q2.element_jacobians([u_q2]), rows["poisson_q2"]["ms"]),
+    })
+    del configs, q2, u_q2
 
     phase_e1(dev)
+    phase_e1_full_w(dev)
     e_configs = e2_configs(dev)
     for name, (ci, _) in e_configs.items():
         log(f"E2 {name}: closed-entries kernel: "
@@ -968,15 +1099,26 @@ def main() -> int:
             "times")
     log(f"phase E2 ok: blocked kernel launches on the main path "
         f"{bj_launches}")
-    for line in BLOCKED_PTXAS:
+    for line in GEMM_PTXAS:
         log(f"E3 ptxas {line}")
+    sass = {}
     for f in BLOCKED_ENERGIES:
         code = bj.entries_code(f, {"lambda": 1, "mu": 1})
-        path = nvcc.library_path("blocked_jacobian",
-                                 bj.kernel_source(code, f.dim, f.dim),
-                                 bj.HEADERS)
+        sass[f"blocked {type(f).__name__}({f.dim})"] = nvcc.library_path(
+            "blocked_jacobian", bj.kernel_source(code, f.dim, f.dim),
+            bj.HEADERS)
+    for f in FULL_W_ENERGIES:
+        code = bj.entries_code(f, {"lambda": 1, "mu": 1})
+        sass[f"full-W {type(f).__name__}(2)"] = nvcc.library_path(
+            "blocked_jacobian", bj.kernel_source(code, 1, 4), bj.HEADERS)
+    for f, sizes in AD_TRACES:
+        if isinstance(f, (NeoHookeanEnergy, DiffusionEnergy)) and (
+                getattr(f, "dim", 2) == 2):
+            sass[f"AD {type(f).__name__}(2)"] = adj.library_path(
+                adj.energy_code(f, sizes))
+    for name, path in sass.items():
         for line in sass_bank_report(path):
-            log(f"E3 SASS {type(f).__name__}({f.dim}) f32: {line}")
+            log(f"E3 SASS {name} f32: {line}")
     e_rows = phase_e3_timing(e_configs, e_main)
     del e_main, e_configs
     log("phase E3 ok")
@@ -985,7 +1127,9 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "fused_element_jacobian",
         "route": "cuda",
-        "source": "mfem_ad_tpu_torch/csrc/fused_jacobian.cu",
+        "source": "mfem_ad_tpu_torch/csrc/blocked_jacobian.cuh (vdim 1, "
+                  "sd n, full W) + closed entries from "
+                  "mfem_ad_tpu_torch/ops/energy_codegen.py",
         "replaces": "mfem_ad_tpu/ops/fused_jacobian.py:80",
         "launches": launches,
         "max_abs_err": err,
@@ -997,7 +1141,9 @@ def main() -> int:
     }, {
         "name": "ad_element_jacobian",
         "route": "cuda",
-        "source": "mfem_ad_tpu_torch/csrc/ad_jacobian.cuh",
+        "source": "mfem_ad_tpu_torch/csrc/blocked_jacobian.cuh (vdim 1, "
+                  "sd n, full W) + ad::HessianEntries from "
+                  "mfem_ad_tpu_torch/csrc/ad_jacobian.cuh",
         "replaces": "mfem_ad_tpu/ops/fused_jacobian.py:160 (_kernel: "
                     "closed branch :173, generic branch :194)",
         "launches": ad_launches,
@@ -1010,7 +1156,9 @@ def main() -> int:
     }, {
         "name": "blocked_element_jacobian",
         "route": "cuda",
-        "source": "mfem_ad_tpu_torch/csrc/blocked_jacobian.cuh",
+        "source": "mfem_ad_tpu_torch/csrc/blocked_jacobian.cuh (W0) + "
+                  "closed entries from "
+                  "mfem_ad_tpu_torch/ops/energy_codegen.py",
         "replaces": "mfem_ad_tpu/ops/fused_jacobian.py:119",
         "launches": bj_launches,
         "max_abs_err": blk["err"],

@@ -3,10 +3,13 @@ differentiation finite-element framework.
 
 A user writes a scalar energy density at a quadrature point; the package
 gives element energies, residuals and Jacobians by AD (``torch.func``) and
-solves with matrix-free Newton–CG.  The element-Jacobian assembly has two
-hand-written CUDA kernels for Hopper: closed-form Hessian entries
-(``ops.fused_jacobian``) and any energy, code-generated and differentiated
-by nested dual numbers (``ops.ad_jacobian``).
+solves with matrix-free Newton–CG.  The element-Jacobian assembly has one
+hand-written CUDA GEMM kernel for Hopper (``csrc/blocked_jacobian.cuh``)
+with three instantiations: closed-form Hessian entries against the
+blocked factor W0 (``ops.blocked_jacobian``) or the full W
+(``ops.fused_jacobian``), and any energy, code-generated and
+differentiated by nested dual numbers, against the full W
+(``ops.ad_jacobian``).
 
 Layout mirrors the JAX package: ``mesh`` ``fespace`` ``quadrature``
 ``basis`` ``geometry`` (numpy substrate), ``ad`` (energies), ``adeval``

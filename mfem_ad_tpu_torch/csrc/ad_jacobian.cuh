@@ -1,5 +1,6 @@
-// Generic AD element-Jacobian assembly for Hopper (sm_90a): any point
-// energy, code-generated and differentiated by nested dual numbers.
+// Nested dual numbers for the generic AD element-Jacobian kernel on Hopper
+// (sm_90a): any point energy, code-generated and differentiated in the
+// kernel.
 //
 // Replaces the TPU kernel mfem_ad_tpu/ops/fused_jacobian.py:_kernel, both
 // of its branches: the closed branch (vmapped hessian_closed, Mass and
@@ -21,27 +22,16 @@
 // x_a.a = 1 and x_b.b = 1 gives dE/dx_a in .a and d2E/dx_a dx_b in .ab (the
 // reference's nested-dual Hessian, n(n+1)/2 evaluations per point).
 //
-// What bounds it on the card: the contraction, nq*N^2*NDE^2 FMA per element
-// (9,216 at the 2D Q1 vector headline, 576 for scalar Q1, 5,184 for scalar
-// Q2), plus the hyper-dual energy evaluations, N(N+1)/2 per qp at about
-// four times the arithmetic of a plain evaluation; against 4*NDE bytes in
-// and 4*NDE^2 bytes out per element in f32.  At the vector headline that is
-// ~36 FMA per output byte, so FMA throughput bounds it; at scalar Q1
-// (~8 FMA per byte) device memory and launch overhead do.  Design (that
-// of csrc/fused_jacobian.cu, generalised):
-//   - one thread owns one element; its NDE^2 <= 81 sums and the Hessian
-//     stay in registers (the plain version writes and re-reads H);
-//   - the w-folded W, R and the per-qp parameters sit in dynamic shared
-//     memory, loaded once per block; a warp reads one W entry at a time
-//     (a broadcast), four at once where the row length allows;
-//   - blocks loop over element tiles (grid = resident blocks);
-//   - each element's row is stored contiguously (16-byte stores where
-//     NDE^2 % 4 == 0); the ragged tail is masked by the loop bound.
-// Tensor cores (wgmma), TMA and coalesced stores are left for later work.
+// The kernel is the element-Jacobian GEMM of blocked_jacobian.cuh
+// instantiated with VDIM = 1, SD = N, nd = NDE, B0 = Bf and the full W as
+// its factor, with HessianEntries<E> below as its entries stage: x and the
+// hyper-dual Hessian are computed once per (element, point) by all threads
+// of a block, then contracted with Ww staged by TMA (ops/ad_jacobian.py
+// writes the launchers).  What bounds it on the card and how the GEMM
+// meets it is written there.
 //
 // The header compiles as CUDA (nvcc) and as host C++ (g++): the nested
-// duals and point_hessian are __host__ __device__, the kernel and its
-// launcher exist only under __CUDACC__.
+// duals, point_hessian and HessianEntries are __host__ __device__.
 
 #pragma once
 
@@ -263,132 +253,18 @@ AD_HD void point_hessian(const S* x, const S* p, S* h) {
   }
 }
 
-#ifdef __CUDACC__
-
-constexpr int kThreads = 128;
-
-template <typename S, int NDE, class E>
-constexpr size_t smem_elems(int nq) {
-  return static_cast<size_t>(nq) * E::kInputs * E::kInputs * NDE * NDE +
-         static_cast<size_t>(nq) * E::kInputs * NDE +
-         static_cast<size_t>(nq) * E::kParams;
-}
-
-template <typename S>
-__device__ __forceinline__ void load4(const S* p, S v[4]);
-template <>
-__device__ __forceinline__ void load4<float>(const float* p, float v[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-template <>
-__device__ __forceinline__ void load4<double>(const double* p, double v[4]) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(double* p, const double v[4]) {
-  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
-  *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
-}
-
-// ue [ne, NDE], R [nq*N, NDE], Ww [nq*N*N, NDE*NDE] (w-folded rows (q,a,b)),
-// prm [nq, kParams], A [ne, NDE, NDE].
-template <typename S, int NDE, class E>
-__global__ void __launch_bounds__(kThreads)
-    jacobian_kernel(const S* __restrict__ ue, const S* __restrict__ R,
-                    const S* __restrict__ Ww, const S* __restrict__ prm,
-                    S* __restrict__ A, int64_t ne, int nq) {
-  constexpr int N = E::kInputs;
-  constexpr int NN = N * N;
-  constexpr int P = E::kParams;
-  constexpr int NDE2 = NDE * NDE;
-  constexpr bool kVec4 = NDE2 % 4 == 0;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  S* sW = reinterpret_cast<S*>(smem_raw);                // [nq*NN][NDE2]
-  S* sR = sW + static_cast<size_t>(nq) * NN * NDE2;      // [nq*N][NDE]
-  S* sP = sR + static_cast<size_t>(nq) * N * NDE;        // [nq][P]
-  for (int i = threadIdx.x; i < nq * NN * NDE2; i += blockDim.x) sW[i] = Ww[i];
-  for (int i = threadIdx.x; i < nq * N * NDE; i += blockDim.x) sR[i] = R[i];
-  for (int i = threadIdx.x; i < nq * P; i += blockDim.x) sP[i] = prm[i];
-  __syncthreads();
-
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < ne; e += stride) {
-    S u[NDE];
-    AD_UNROLL for (int i = 0; i < NDE; ++i) u[i] = ue[e * NDE + i];
-    S acc[NDE2];
-    AD_UNROLL for (int ij = 0; ij < NDE2; ++ij) acc[ij] = S(0);
-
-    for (int q = 0; q < nq; ++q) {
-      S x[N];
-      AD_UNROLL for (int a = 0; a < N; ++a) {
-        const S* Rr = sR + (q * N + a) * NDE;
-        S s = S(0);
-        AD_UNROLL for (int i = 0; i < NDE; ++i) s += Rr[i] * u[i];
-        x[a] = s;
-      }
-      S h[NN];
-      point_hessian<S, E>(x, sP + q * P, h);
-      const S* Wq = sW + static_cast<size_t>(q) * NN * NDE2;
-      AD_UNROLL for (int ab = 0; ab < NN; ++ab) {
-        const S hv = h[ab];
-        const S* Wr = Wq + ab * NDE2;
-        if constexpr (kVec4) {
-          AD_UNROLL for (int ij = 0; ij < NDE2; ij += 4) {
-            S w4[4];
-            load4<S>(Wr + ij, w4);
-            AD_UNROLL for (int c = 0; c < 4; ++c) acc[ij + c] += hv * w4[c];
-          }
-        } else {
-          AD_UNROLL for (int ij = 0; ij < NDE2; ++ij) acc[ij] += hv * Wr[ij];
-        }
-      }
-    }
-    S* Ae = A + e * NDE2;
-    if constexpr (kVec4) {
-      AD_UNROLL for (int ij = 0; ij < NDE2; ij += 4) store4(Ae + ij, acc + ij);
-    } else {
-      AD_UNROLL for (int ij = 0; ij < NDE2; ++ij) Ae[ij] = acc[ij];
-    }
+// The AD entries stage of the element-Jacobian GEMM (blocked_jacobian.cuh,
+// instantiated with VDIM = 1 and SD = N against the full W): the per-point
+// Hessian of the energy E by nested duals, in the interface of the traced
+// closed entries (kInputs, kParams, eval(x, p, h) writing h[a*N + b]).
+template <class E>
+struct HessianEntries {
+  static constexpr int kInputs = E::kInputs;
+  static constexpr int kParams = E::kParams;
+  template <typename T>
+  static AD_HD void eval(const T* x, const T* p, T* h) {
+    point_hessian<T, E>(x, p, h);
   }
-}
-
-// Launch on ``stream``: one block of kThreads per resident slot, each
-// looping over element tiles.  Returns the launch's cudaError_t.
-template <typename S, int NDE, class E>
-cudaError_t launch(const void* ue, const void* R, const void* Ww,
-                   const void* prm, void* A, int64_t ne, int nq,
-                   cudaStream_t stream) {
-  auto kernel = jacobian_kernel<S, NDE, E>;
-  const size_t smem = smem_elems<S, NDE, E>(nq) * sizeof(S);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int64_t tiles = (ne + kThreads - 1) / kThreads;
-  const int64_t resident = static_cast<int64_t>(per_sm) * sms;
-  const int grid = static_cast<int>(tiles < resident ? tiles : resident);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const S*>(ue), static_cast<const S*>(R),
-      static_cast<const S*>(Ww), static_cast<const S*>(prm),
-      static_cast<S*>(A), ne, nq);
-  return cudaGetLastError();
-}
-
-#endif  // __CUDACC__
+};
 
 }  // namespace ad

@@ -1,24 +1,38 @@
-// Blocked-W0 element-Jacobian assembly for Hopper (sm_90a): closed-form
-// Hessian entries contracted per vdim-block pair with W0 = b0 (x) b0.
+// The element-Jacobian GEMM for Hopper (sm_90a): x from B0, the Hessian
+// entries of an energy, and their contraction with a factor W0, per
+// vdim-block pair.
 //
-// Replaces the TPU kernel mfem_ad_tpu/ops/fused_jacobian.py:119,
-// _kernel_tile_blocked.  For every element e of a structured single-space
-// integrator whose input is pure GRAD|VECTOR (N = VDIM*SD):
+// For every element e of a structured single-space integrator (N =
+// VDIM*SD inputs per point):
 //
 //   x_q[v*SD+a]        = sum_i B0[q,i,a] ue_e[v*nd+i]
-//   H(q)               = the energy's closed entries at (x_q, p_q)
+//   H(q)               = the entries stage E at (x_q, p_q)
 //   A_e[v*nd+i,w*nd+j] = sum_q sum_ab Ww[(q,a,b),(i,j)] H[v*SD+a][w*SD+b](q)
 //
-// with Ww = W0 with the quadrature weights folded into its rows.  The
-// entries are straight-line code written by
-// mfem_ad_tpu_torch/ops/energy_codegen.py (trace_entries), reached through
-// a struct E with kInputs, kParams and
+// with Ww = the factor with the quadrature weights folded into its rows.
+// The entries stage is a struct E with kInputs, kParams and
 //   template <typename T> static void eval(const T* x, const T* p, T* h).
+// One kernel, three instantiations, each replacing one TPU kernel of
+// mfem_ad_tpu/ops/fused_jacobian.py:
+//   - _kernel_tile_blocked (:119): VDIM x SD = 2x2 or 3x3, the blocked
+//     factor W0 = b0 (x) b0, E the closed entries that
+//     mfem_ad_tpu_torch/ops/energy_codegen.py (trace_entries) writes
+//     (ops/blocked_jacobian.py);
+//   - _kernel_tile (:80): VDIM = 1, SD = n, nd = nde, B0 = Bf (the
+//     vdim-block-diagonal basis, R read as [nq, nde, n]) and the full
+//     W = Bf (x) Bf, E the same closed entries (ops/fused_jacobian.py);
+//   - _kernel (:160, both branches): the same full-W shape, E =
+//     ad::HessianEntries<Energy> (ad_jacobian.cuh), the nested-dual
+//     Hessian of the generated energy (ops/ad_jacobian.py).
+// At VDIM = 1 the interpolation and the (v,i,w,j) layout below reduce to
+// the TPU kernels' x = R ue and A[e, i, j].
 //
 // What bounds it on the card: f32 FMA issue.  The contraction is
 // VDIM^2 nd^2 nq SD^2 FMA per element (20,736 at 2D p2, 139,968 at 3D p1,
-// 3,779,136 at 3D p2) against 4 (nde + nde^2) bytes in and out: more than
-// 10 FMA per byte everywhere.  It is a GEMM per block,
+// 3,779,136 at 3D p2, 9,216 at the 2D Q1 vector headline, 5,184 at scalar
+// Q2) against 4 (nde + nde^2) bytes in and out: more than 10 FMA per byte
+// everywhere but scalar Q1 (576 FMA against 80 bytes, where device memory
+// and the launch bound it).  It is a GEMM per block,
 //
 //   C[(e,v,w), (i,j)] = sum_k H[(e,v,w), k] Ww[k, (i,j)],   k = (q, a, b),
 //
@@ -77,6 +91,18 @@
 //          recompute them for each tile.
 //   3D p3 (nq = 125): the entries do not fit (324 KB at 7 elements);
 //          chunks of 35 points, recomputed for each of the 11 column tiles.
+//   full W (vdim = 1), where K = nq n^2 is short and more, smaller
+//          blocks hide each block's fixed costs: the 2D Q1 vector
+//          headline (n = 4, nde = 8, nq = 9): 128 elements x 64 columns,
+//          128 threads, entries in chunks of 3 points, 2 stages of 48
+//          rows, 61,568 bytes: three blocks (12 warps) per SM; scalar Q2
+//          (n = 2, nde = 9, nq = 16): 128 elements x 96 columns (81
+//          padded), 192 threads, entries resident, 2 stages of 32 rows,
+//          63,104 bytes; scalar Q1 (2, 4, 9): 512 elements x 16 columns,
+//          128 threads, entries resident, one slot of 36 rows, 114,816
+//          bytes: two blocks (8 warps) per SM.
+// The AD instantiation runs its n(n+1)/2 hyper-dual evaluations per point
+// in the entries stage, under the same 168-register cap.
 // Registers and spills are printed by nvcc -Xptxas -v (chip_smoke.py).
 
 #pragma once
@@ -161,6 +187,27 @@ AD_HD int lanes_n(int col_groups) {
 
 #ifdef __CUDACC__
 
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, T v[4]);
+template <>
+__device__ __forceinline__ void load4<float>(const float* p, float v[4]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+}
+template <>
+__device__ __forceinline__ void load4<double>(const double* p, double v[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(double* p, const double v[4]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(v[2], v[3]);
+}
+
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
@@ -221,10 +268,10 @@ template <typename T>
 __device__ __forceinline__ void load_frag(const T* hs, const T* ws, int k,
                                           int BM, int BN, T a[kTileM],
                                           T b[kTileN]) {
-  ad::load4<T>(hs + k * BM, a);
-  ad::load4<T>(hs + k * BM + BM / 2, a + 4);
-  ad::load4<T>(ws + k * BN, b);
-  ad::load4<T>(ws + k * BN + BN / 2, b + 4);
+  load4<T>(hs + k * BM, a);
+  load4<T>(hs + k * BM + BM / 2, a + 4);
+  load4<T>(ws + k * BN, b);
+  load4<T>(ws + k * BN + BN / 2, b + 4);
 }
 
 // ue [ne, VDIM*nd] byNODES (v, i) flat, B0 [nq, nd, SD], Ww tile-major
@@ -305,9 +352,13 @@ __global__ void __launch_bounds__(max_threads<T>(), 1)
       // ue = 0; their sums are never stored.
       const int q0 = ks * QS;
       const int qn = nq - q0 < QC ? nq - q0 : QC;
-      for (int pr = tid; pr < BE * qn; pr += blockDim.x) {
-        const int e = pr % BE;
-        const int ql = pr / BE;
+      // pairs pr = ql * BE + e, walked by the block with the divisions
+      // done once: a stride of blockDim.x pairs is step_q points and
+      // step_e elements
+      const int step_q = static_cast<int>(blockDim.x) / BE;
+      const int step_e = static_cast<int>(blockDim.x) - step_q * BE;
+      for (int e = tid % BE, ql = tid / BE; ql < qn;
+           e += step_e, ql += step_q + (e >= BE), e -= (e >= BE) ? BE : 0) {
         const int q = q0 + ql;
         const T* u = sU + e * nde;
         const T* Bq = B0 + static_cast<size_t>(q) * nd * SD;
@@ -379,8 +430,17 @@ __global__ void __launch_bounds__(max_threads<T>(), 1)
         const int w = r - e * VD2 - v * VDIM;
         if (e < te) {
           T* out = sC + (e * nde + v * nd) * nde + w * nd;
-          AD_UNROLL for (int j = 0; j < kTileN; ++j) {
-            if (c_off[j] >= 0) out[c_off[j]] = acc[i][j];
+          if constexpr (VDIM == 1) {
+            // a group of 4 columns is 4 consecutive values of A (nd^2 is
+            // a multiple of 4 where the output is contiguous): one
+            // 16-byte store (two in f64) in place of four
+            AD_UNROLL for (int h = 0; h < 2; ++h) {
+              if (c_off[4 * h] >= 0) store4(out + c_off[4 * h], acc[i] + 4 * h);
+            }
+          } else {
+            AD_UNROLL for (int j = 0; j < kTileN; ++j) {
+              if (c_off[j] >= 0) out[c_off[j]] = acc[i][j];
+            }
           }
         }
       }
@@ -412,8 +472,8 @@ __global__ void __launch_bounds__(max_threads<T>(), 1)
         __syncthreads();  // the ring, or the previous half, has been read
         AD_UNROLL for (int i = 0; i < 4; ++i) {
           T* dst = sC + static_cast<size_t>(mg * 4 + i) * LDC + ng * 4;
-          ad::store4(dst, acc[h * 4 + i]);
-          ad::store4(dst + BN / 2, acc[h * 4 + i] + 4);
+          store4(dst, acc[h * 4 + i]);
+          store4(dst + BN / 2, acc[h * 4 + i] + 4);
         }
         __syncthreads();
         for (int rr = tid / BN; rr < BM / 2; rr += blockDim.x / BN) {

@@ -563,7 +563,8 @@ class ADBlockIntegrator(nn.Module):
           "kernel"     the closed-entries element-Jacobian kernel: the
                        blocked-W0 kernel (``ops.blocked_jacobian``) where
                        W0 is installed and the input is pure GRAD|VECTOR,
-                       else the full-W kernel (``ops.fused_jacobian``);
+                       else the full-W kernel (``ops.fused_jacobian``,
+                       the same GEMM kernel with vdim = 1, sd = n);
                        raises where it does not apply (see
                        ``kernel_route_refusal``);
           "kernel_ad"  the AD element-Jacobian kernel for any energy that

@@ -9,11 +9,14 @@ integrator with a full contraction factor W
     A_e[i, j] = sum_q w_q sum_{a,b} R[(q,a), i] H_ab(x_q) R[(q,b), j],
     x_q = R_q ue_e,   H = d2 f.energy / dx2.
 
-``ops/energy_codegen.py`` turns ``f.energy`` into straight-line C++; this
-module writes it into a small ``.cu`` beside ``csrc/ad_jacobian.cuh`` (the
-nested duals and the kernel template), which ``ops/nvcc.py`` compiles for
-sm_90a into ``mfem_ad_tpu_torch/_build/`` under a name that hashes the
-generated source, the header and the flags, and binds through
+The kernel is the element-Jacobian GEMM of ``csrc/blocked_jacobian.cuh``
+instantiated as the full-W kernel is (vdim = 1, sd = n, nd = nde, B0 = Bf,
+factor W; ``ops/fused_jacobian.py``), with ``ad::HessianEntries`` of
+``csrc/ad_jacobian.cuh`` as its entries stage: the nested-dual Hessian of
+the energy that ``ops/energy_codegen.py`` turns into straight-line C++.
+This module writes it into a small ``.cu``, which ``ops/nvcc.py`` compiles
+for sm_90a into ``mfem_ad_tpu_torch/_build/`` under a name that hashes the
+generated source, the headers and the flags, and binds through
 ``ctypes``.  The plain PyTorch version (``ad_element_jacobian_plain``)
 computes H with ``torch.func`` and contracts it with one GEMM.
 ``ad_element_jacobian`` runs the plain version for tensors on the CPU and
@@ -22,14 +25,16 @@ the kernel for tensors on a CUDA device.
 
 from __future__ import annotations
 
-import ctypes
+import functools
 import weakref
 
 import torch
 from torch.func import grad, jacfwd
 
 from ..integrator import qpmap
+from . import blocked_jacobian as bj
 from . import nvcc
+from .blocked_jacobian import param_sizes
 from .energy_codegen import (
     EnergyCode,
     UnsupportedEnergy,
@@ -37,25 +42,12 @@ from .energy_codegen import (
     trace_energy,
 )
 from .fused_jacobian import (
-    SMEM_LIMIT,
-    check_operand,
+    check_full_w_operands,
+    full_w_operands,
+    full_w_refusal,
     kernel_inputs,
     supports_fused,
 )
-
-HEADERS = ("ad_jacobian.cuh",)
-
-# (n, nde) the kernel is compiled for: per-qp input width and element
-# dofs.  Scalar Q1/Q2 in 2D with VALUE (n=1) or GRAD (n=2), scalar Q1 in
-# 3D with GRAD (n=3), and the 2D Q1 vector GRAD headline (n=4).  One thread
-# keeps nde^2 <= 81 sums in registers; larger elements need another design.
-KERNEL_SIZES = ((1, 4), (1, 9), (2, 4), (2, 9), (3, 8), (4, 8))
-
-
-def param_sizes(params: dict) -> dict:
-    """name -> values per point, from [..., nq, k] parameter tensors."""
-    return {k: int(v.shape[-1]) for k, v in params.items()}
-
 
 _TRACES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
@@ -67,71 +59,44 @@ def energy_code(f, psizes: dict) -> EnergyCode:
     return cached_trace(_TRACES, trace_energy, f, psizes)
 
 
+@functools.lru_cache(maxsize=None)
 def kernel_source(code: EnergyCode) -> str:
-    """The ``.cu`` translation unit for one traced energy: the header, the
-    generated energy, and ``extern "C"`` launchers for f32 and f64 at every
-    compiled nde for this energy's n."""
-    ndes = [nde for n, nde in KERNEL_SIZES if n == code.n_input]
-    if not ndes:
-        raise ValueError(f"no compiled size for n={code.n_input}")
-    lines = [
-        '#include "ad_jacobian.cuh"',
+    """The ``.cu`` translation unit for one traced energy: the headers, the
+    generated energy, and ``extern "C"`` launchers for f32 and f64 of the
+    element-Jacobian GEMM with vdim = 1, sd = n and the energy's
+    nested-dual Hessian as its entries stage (nde is an argument)."""
+    n = code.n_input
+    if n not in bj.FULL_WIDTHS:
+        raise ValueError(f"n = {n} is not among the compiled widths "
+                         f"{bj.FULL_WIDTHS}")
+    return "\n".join([
+        '#include "blocked_jacobian.cuh"',
         "",
         code.source,
         "struct Energy {",
-        f"  static constexpr int kInputs = {code.n_input};",
+        f"  static constexpr int kInputs = {n};",
         f"  static constexpr int kParams = {code.n_params};",
         "  template <typename T>",
         f"  static AD_HD T eval(const T* x, const T* p) {{ return "
         f"{code.name}<T>(x, p); }}",
         "};",
         "",
-    ]
-    for suffix, s in (("f32", "float"), ("f64", "double")):
-        lines += [
-            f'extern "C" int adj_launch_{suffix}(const void* ue, '
-            "const void* R, const void* Ww, const void* prm, void* A, "
-            "int64_t ne, int nq, int nde, void* stream) {",
-            "  const cudaStream_t s = static_cast<cudaStream_t>(stream);",
-            "  switch (nde) {",
-        ]
-        lines += [
-            f"    case {nde}: return ad::launch<{s}, {nde}, Energy>("
-            "ue, R, Ww, prm, A, ne, nq, s);"
-            for nde in ndes
-        ]
-        lines += ["    default: return cudaErrorInvalidValue;", "  }", "}", ""]
-    return "\n".join(lines)
+        *bj.launcher_source(1, n, "ad::HessianEntries<Energy>"),
+    ])
 
 
 def library_path(code: EnergyCode) -> str:
     """Where the energy's compiled kernel lives: the name hashes the
-    generated source, the header and the compiler flags."""
-    return nvcc.library_path("ad_jacobian", kernel_source(code), HEADERS)
+    generated source, the headers and the compiler flags."""
+    return nvcc.library_path("ad_jacobian", kernel_source(code), bj.HEADERS)
 
 
 def build_library(code: EnergyCode) -> str:
     """Compile the energy's kernel when its library is missing; returns the
     compiler's report (empty when the library already exists).  Raises
     when nvcc is missing or fails."""
-    return nvcc.build_library("ad_jacobian", kernel_source(code), HEADERS)
-
-
-_ARGTYPES = [ctypes.c_void_p] * 5 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-
-
-def _library(code: EnergyCode):
-    """The energy's loaded library, built at its first use."""
-    return nvcc.load_library(
-        "ad_jacobian", kernel_source(code), HEADERS,
-        {"adj_launch_f32": _ARGTYPES, "adj_launch_f64": _ARGTYPES})
-
-
-def smem_bytes(n: int, nde: int, nq: int, n_params: int, dtype) -> int:
-    """Dynamic shared memory of one block: W, R and the parameters."""
-    elem = torch.empty((), dtype=dtype).element_size()
-    return (nq * n * n * nde * nde + nq * n * nde + nq * n_params) * elem
+    return nvcc.build_library("ad_jacobian", kernel_source(code),
+                              bj.HEADERS)
 
 
 def ad_element_jacobian_plain(f, ue, R, W, wq, params):
@@ -165,56 +130,22 @@ def ad_element_jacobian(f, ue, R, W, wq, params):
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     (counted in ``ad_element_jacobian.launches``) or raise: an energy that
-    does not trace raises ``UnsupportedEnergy``; there is no fallback on
-    the device."""
+    does not trace raises ``UnsupportedEnergy``, a shape no launch plan
+    fits raises ``ValueError``; there is no fallback on the device."""
     if ue.device.type == "cpu":
         return ad_element_jacobian_plain(f, ue, R, W, wq, params)
-    if ue.device.type != "cuda":
-        raise ValueError(f"unsupported device {ue.device}")
-    if ue.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {ue.dtype}")
-    if ue.dim() != 2:
-        raise ValueError(f"ue: shape {tuple(ue.shape)}, expected [ne, nde]")
-    ne, nde = ue.shape
-    nq = wq.shape[0]
+    bj.check_cuda_operand(ue)
     code = energy_code(f, param_sizes(params))
     n = code.n_input
-    if (n, nde) not in KERNEL_SIZES:
-        raise ValueError(
-            f"(n, nde) = ({n}, {nde}) is not among the compiled sizes "
-            f"{KERNEL_SIZES}")
-    if smem_bytes(n, nde, nq, code.n_params, ue.dtype) > SMEM_LIMIT:
-        raise ValueError(f"nq={nq} exceeds the kernel's shared memory")
-    check_operand("ue", ue, (ne, nde), ue)
-    check_operand("R", R, (nq * n, nde), ue)
-    check_operand("W", W, (nq * n * n, nde * nde), ue)
-    check_operand("wq", wq, (nq,), ue)
-    if tuple(k for k, _ in code.param_sizes) != tuple(sorted(params)):
-        raise ValueError(f"parameters {sorted(params)} differ from the "
-                         f"trace's {[k for k, _ in code.param_sizes]}")
-    for k, size in code.param_sizes:
-        check_operand(k, params[k], (nq, size), ue)
+    ne, nde, nq = check_full_w_operands(ue, R, W, wq, n)
+    prm = bj.packed_params(code, params, nq, ue)
     A = torch.empty((ne, nde, nde), dtype=ue.dtype, device=ue.device)
     if ne == 0:
         return A
-    # fold the element-shared quadrature weights into W's rows
-    Ww = (W * wq.repeat_interleave(n * n)[:, None]).contiguous()
-    prm = (torch.cat([params[k] for k, _ in code.param_sizes], dim=1)
-           .contiguous() if code.n_params else None)
-    lib = _library(code)
-    launch = lib.adj_launch_f32 if ue.dtype == torch.float32 else (
-        lib.adj_launch_f64
-    )
-    with torch.cuda.device(ue.device):
-        stream = torch.cuda.current_stream(ue.device).cuda_stream
-        err = launch(
-            ue.data_ptr(), R.data_ptr(), Ww.data_ptr(),
-            None if prm is None else prm.data_ptr(), A.data_ptr(), ne, nq,
-            nde, stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"ad_jacobian kernel launch failed: CUDA error {err}")
+    plan = bj.launch_plan(1, n, nde, nq, ue.dtype)
+    B0, Ww = full_w_operands(R, W, wq, n, plan)
+    lib = bj.load_library("ad_jacobian", kernel_source(code))
+    bj.launch(lib, "ad_jacobian", ue, B0, Ww, prm, A, nq, nde, plan)
     ad_element_jacobian.launches += 1
     return A
 
@@ -241,18 +172,11 @@ def ad_kernel_route_refusal(intg) -> str | None:
     if "0_0" not in t["W"]:
         return ("no full W factor: blocked-W0 configurations take the "
                 "blocked-W0 kernel or two-stage")
-    n, nde = intg.n_input, intg.vdim[0] * intg.nd[0]
-    if (n, nde) not in KERNEL_SIZES:
-        return (f"(n, nde) = ({n}, {nde}) is not among the compiled sizes "
-                f"{KERNEL_SIZES}")
-    if intg.dtype not in (torch.float32, torch.float64):
-        return f"unsupported dtype {intg.dtype}"
-    psizes = param_sizes(t["static"])
-    if smem_bytes(n, nde, intg.nq, sum(psizes.values()),
-                  intg.dtype) > SMEM_LIMIT:
-        return f"nq={intg.nq} does not fit in one block's shared memory"
+    why = full_w_refusal(intg)
+    if why is not None:
+        return why
     try:
-        energy_code(intg.f, psizes)
+        energy_code(intg.f, param_sizes(t["static"]))
     except UnsupportedEnergy as e:
         return f"the energy does not trace: {e}"
     return None

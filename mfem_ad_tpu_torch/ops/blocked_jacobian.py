@@ -1,6 +1,6 @@
 """Blocked-W0 element-Jacobian assembly: x from B0, closed-form Hessian
 entries, and the contraction with W0 = b0 (x) b0 per vdim-block pair, in one
-hand-written CUDA kernel.
+hand-written CUDA kernel; and that kernel's shared machinery.
 
 Replaces the TPU kernel
 ``mfem_ad_tpu/ops/fused_jacobian.py:_kernel_tile_blocked``.  For every
@@ -15,6 +15,14 @@ every 3D configuration):
 
 W0 is vdim^2 times smaller than the full factor W = Bf (x) Bf, and it is
 the only factor the integrator installs at 3D p>=2.
+
+The same kernel (``csrc/blocked_jacobian.cuh``) at vdim = 1, sd = n,
+nd = nde, B0 = Bf and the full W as its factor is the full-W kernel
+(``ops/fused_jacobian.py``, closed entries) and the AD kernel
+(``ops/ad_jacobian.py``, nested-dual Hessian): this module holds what the
+three share: the launch plan, the tile-major factor, the operand checks,
+the launchers' source and the launch, and the operands derived once per
+table (``derived``).
 
 ``ops/energy_codegen.trace_entries`` turns the energy's closed entries into
 straight-line C++; this module writes it into a small ``.cu`` beside
@@ -37,20 +45,24 @@ import weakref
 from dataclasses import dataclass
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import nvcc
-from .ad_jacobian import param_sizes
 from .energy_codegen import (
     EnergyCode,
     UnsupportedEnergy,
     cached_trace,
     trace_entries,
 )
-from .fused_jacobian import check_operand
 
 HEADERS = ("blocked_jacobian.cuh", "ad_jacobian.cuh")
-# (vdim, sd) the kernel is compiled for: 2D and 3D vector GRAD inputs
-KERNEL_SHAPES = ((2, 2), (3, 3))
+# (vdim, sd) the blocked factor W0 is compiled for: 2D and 3D vector GRAD
+BLOCKED_SHAPES = ((2, 2), (3, 3))
+# Input widths n of the full-W instantiations (vdim = 1, sd = n, nd = nde,
+# B0 = Bf, factor W): VALUE (1), 2D and 3D GRAD (2, 3), 2D vector GRAD
+# (4), 2D vector VALUE|GRAD (6) and 3D vector GRAD (9).
+FULL_WIDTHS = (1, 2, 3, 4, 6, 9)
+KERNEL_SHAPES = BLOCKED_SHAPES + tuple((1, n) for n in FULL_WIDTHS)
 
 # The kernel's fixed shape (csrc/blocked_jacobian.cuh): each thread owns
 # TILE_M rows (e, v, w) x TILE_N columns (i, j) of the block's GEMM.
@@ -62,13 +74,25 @@ TILE_M = TILE_N = 8
 # holds as many warps as the others.  f64 (255 registers) runs one block.
 THREAD_CHOICES = {torch.float32: (192, 384, 256, 128),
                   torch.float64: (256, 128)}
+# The full-W instantiations (vdim = 1): a block's contraction is short
+# (K = nq n^2 = 36 to 144 on the main path), so its fixed costs (the dofs'
+# load, the entries stage, the barriers, the write-out) weigh more, and
+# more, smaller blocks hide them better: 128 threads first in f32, as
+# many blocks per SM as registers allow (three), and few ring slots (one
+# of all points where it fits, else of at least FULL_W_STAGE_ROWS rows),
+# so fewer barriers per block.
+FULL_W_THREAD_CHOICES = {torch.float32: (128, 192, 384, 256),
+                         torch.float64: (256, 128)}
 MAX_COL_TILE = 256  # columns (i, j) per column tile, before widening
 STAGES = 2  # ring slots for Ww, filled by TMA bulk copies
 BAR_BYTES = 128  # the ring's mbarriers (bj::kBarBytes)
 MIN_STAGE_ROWS = 16  # Ww rows (q, a, b) per ring slot, at least
+FULL_W_STAGE_ROWS = 32  # the same at vdim = 1
 SMEM_LIMIT = 232_448  # dynamic shared memory one Hopper block may use
+SMEM_SM = 233_472  # shared memory of one SM, 1 KB of it reserved per block
+WARPS_F32 = 12  # warps an SM holds at 168 registers a thread
 # per block, so that two blocks fit in an SM's 228 KB (1 KB reserved each)
-SMEM_TWO_BLOCKS = 115_712
+SMEM_TWO_BLOCKS = SMEM_SM // 2 - 1024
 
 
 @dataclass(frozen=True)
@@ -98,14 +122,19 @@ def lanes_n(col_groups: int) -> int:
     return min(col_groups & -col_groups, 8)
 
 
-def _col_tile(nd2: int, threads: int, slack: float) -> int | None:
+def _col_tile(nd2: int, threads: int, slack: float,
+              narrow: bool = False) -> int | None:
     """The narrowest column tile that tiles ``threads`` in whole warps of
     32 // LN row groups x LN column groups, gives every thread one column
     of the write-out and pads nd^2 at most ``slack`` times as far as tiles
-    of min(nd^2 rounded up to TILE_N, MAX_COL_TILE) do, or None."""
+    of base = min(nd^2 rounded up to TILE_N, MAX_COL_TILE) do, or None.
+    Tiles of base to 2 base columns are tried; with ``narrow``, the widest
+    tile narrower than base instead."""
     base = min(-(-nd2 // TILE_N) * TILE_N, MAX_COL_TILE)
     limit = slack * -(-nd2 // base) * base
-    for col in range(base, 2 * base + 1, TILE_N):
+    cols = (range(base - TILE_N, 0, -TILE_N) if narrow
+            else range(base, 2 * base + 1, TILE_N))
+    for col in cols:
         groups = col // TILE_N
         if (threads % col == 0 and -(-nd2 // col) * col <= limit
                 and threads // groups % (32 // lanes_n(groups)) == 0):
@@ -132,33 +161,50 @@ def launch_plan(vdim: int, sd: int, nd: int, nq: int,
     """The kernel's launch plan for element Jacobians of ``vdim`` x ``sd``
     GRAD inputs on ``nd`` nodes and ``nq`` points, in ``dtype``.
 
-    - the first of THREAD_CHOICES that tiles a column tile in whole warps
-      padding at most 10% more columns (``_col_tile``), else the first
-      that tiles one at all; as many elements as its rows hold (the rest
-      pad the tile); two blocks per SM's shared memory at 192 threads in
-      f32;
+    - the first of THREAD_CHOICES (FULL_W_THREAD_CHOICES at vdim = 1)
+      that tiles a column tile in whole warps padding at most 10% more
+      columns (``_col_tile``), else the first that tiles one at all, else
+      the first that tiles a narrower one (where a ring slot of one point
+      of wide columns does not fit: the full W at n = 9 in f64); as many
+      elements as its rows hold (the rest pad the tile); two blocks per
+      SM's shared memory at 192 threads in f32 (at vdim = 1, the shared
+      memory of as many blocks as 12 warps make, else of one fewer);
     - ring slots of the fewest whole points that give MIN_STAGE_ROWS rows
-      (one point where those do not fit);
+      (one point where those do not fit); at vdim = 1 one slot of all
+      points where it fits, else slots of FULL_W_STAGE_ROWS rows;
     - every point's entries resident in shared memory where they fit,
       else the largest whole-slot chunk of points that fits.
 
     Raises ValueError for a shape no plan fits."""
     elem = torch.empty((), dtype=dtype).element_size()
     vd2, sd2, nd2 = vdim * vdim, sd * sd, nd * nd
+    full_w = vdim == 1
+    min_rows = FULL_W_STAGE_ROWS if full_w else MIN_STAGE_ROWS
+    choices = (FULL_W_THREAD_CHOICES if full_w else THREAD_CHOICES)[dtype]
     preferred = next(d for d in range(1, nq + 1)
-                     if nq % d == 0 and (d * sd2 >= MIN_STAGE_ROWS or d == nq))
+                     if nq % d == 0 and (d * sd2 >= min_rows or d == nq))
     # padding at most 10% more columns where a thread count allows it
-    for threads, slack in [(t, x) for x in (1.1, 2.0)
-                           for t in THREAD_CHOICES[dtype]]:
-        col = _col_tile(nd2, threads, slack)
+    for narrow, slack, threads in [(w, x, t) for w in (False, True)
+                                   for x in (1.1, 2.0) for t in choices]:
+        col = _col_tile(nd2, threads, slack, narrow)
         rows = 0 if col is None else threads // (col // TILE_N) * TILE_M
         be = rows // vd2
         if be == 0:
             continue
-        two = dtype == torch.float32 and threads <= 192
-        budget = SMEM_TWO_BLOCKS if two else SMEM_LIMIT
+        slots = (preferred, 1)  # one point per slot where a slot is big
+        if dtype != torch.float32:
+            budgets = [SMEM_LIMIT]
+        elif full_w:
+            # the shared memory of as many blocks as 12 warps make, or of
+            # one block fewer; one ring slot of all points first
+            most = WARPS_F32 * 32 // threads
+            budgets = [min(SMEM_SM // b - 1024, SMEM_LIMIT)
+                       for b in (most, most - 1) if b > 0]
+            slots = (nq, preferred, 1)
+        else:
+            budgets = [SMEM_TWO_BLOCKS if threads <= 192 else SMEM_LIMIT]
         per_q = sd2 * rows * elem  # one point's entries for the block
-        for qs in (preferred, 1):  # one point per slot where a slot is big
+        for qs, budget in [(q, b) for q in slots for b in budgets]:
             # the ring's mbarriers, the Ww ring (which holds the staged
             # output once a column tile is done) and the dofs
             ring = max(STAGES * qs * sd2 * col,
@@ -173,13 +219,38 @@ def launch_plan(vdim: int, sd: int, nd: int, nq: int,
     raise ValueError(f"no launch plan fits vdim={vdim}, nd={nd}, nq={nq}")
 
 
+def launcher_source(vdim: int, sd: int, entries: str) -> list[str]:
+    """The ``extern "C"`` launchers ``bj_launch_f32`` and ``bj_launch_f64``
+    of the kernel instantiated with ``vdim``, ``sd`` and the entries stage
+    ``entries`` (a C++ type with kInputs, kParams and eval(x, p, h))."""
+    lines = []
+    for suffix, s in (("f32", "float"), ("f64", "double")):
+        lines += [
+            f'extern "C" int bj_launch_{suffix}(const void* ue, '
+            "const void* B0, const void* Ww, const void* prm, void* A, "
+            "int64_t ne, int nq, int nd, int elem_tile, int col_tile, "
+            "int threads, int stages, int quad_stage, int quad_chunk, "
+            "int64_t smem_bytes, void* stream) {",
+            "  const bj::Plan plan{elem_tile, col_tile, threads, stages, "
+            "quad_stage, quad_chunk, smem_bytes};",
+            f"  return bj::launch<{s}, {vdim}, {sd}, {entries}>(ue, B0, Ww, "
+            "prm, A, ne, nq, nd, plan, static_cast<cudaStream_t>(stream));",
+            "}",
+            "",
+        ]
+    return lines
+
+
+@functools.lru_cache(maxsize=None)
 def kernel_source(code: EnergyCode, vdim: int, sd: int) -> str:
-    """The ``.cu`` translation unit for one traced energy: the header, the
-    generated entries, and ``extern "C"`` launchers for f32 and f64."""
+    """The ``.cu`` translation unit for one traced closed-entries energy: the
+    header, the generated entries, and ``extern "C"`` launchers for f32 and
+    f64 of the kernel at ``vdim`` x ``sd``: a blocked factor W0 at
+    BLOCKED_SHAPES, the full W at vdim = 1, sd = n."""
     if (vdim, sd) not in KERNEL_SHAPES or code.n_input != vdim * sd:
         raise ValueError(f"(vdim, sd) = ({vdim}, {sd}) with n = "
                          f"{code.n_input} is not among {KERNEL_SHAPES}")
-    lines = [
+    return "\n".join([
         '#include "blocked_jacobian.cuh"',
         "",
         code.source,
@@ -192,22 +263,8 @@ def kernel_source(code: EnergyCode, vdim: int, sd: int) -> str:
         "  }",
         "};",
         "",
-    ]
-    for suffix, s in (("f32", "float"), ("f64", "double")):
-        lines += [
-            f'extern "C" int bj_launch_{suffix}(const void* ue, '
-            "const void* B0, const void* Ww, const void* prm, void* A, "
-            "int64_t ne, int nq, int nd, int elem_tile, int col_tile, "
-            "int threads, int stages, int quad_stage, int quad_chunk, "
-            "int64_t smem_bytes, void* stream) {",
-            "  const bj::Plan plan{elem_tile, col_tile, threads, stages, "
-            "quad_stage, quad_chunk, smem_bytes};",
-            f"  return bj::launch<{s}, {vdim}, {sd}, Entries>(ue, B0, Ww, "
-            "prm, A, ne, nq, nd, plan, static_cast<cudaStream_t>(stream));",
-            "}",
-            "",
-        ]
-    return "\n".join(lines)
+        *launcher_source(vdim, sd, "Entries"),
+    ])
 
 
 def build_library(code: EnergyCode, vdim: int, sd: int) -> str:
@@ -222,10 +279,16 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [ctypes.c_int] * 8 + [
     ctypes.c_int64, ctypes.c_void_p]
 
 
-def _library(code: EnergyCode, vdim: int, sd: int):
+def load_library(stem: str, source: str):
+    """The library of one kernel instantiation (``source`` from
+    ``launcher_source``), built at its first use."""
     return nvcc.load_library(
-        "blocked_jacobian", kernel_source(code, vdim, sd), HEADERS,
+        stem, source, HEADERS,
         {"bj_launch_f32": _ARGTYPES, "bj_launch_f64": _ARGTYPES})
+
+
+def _library(code: EnergyCode, vdim: int, sd: int):
+    return load_library("blocked_jacobian", kernel_source(code, vdim, sd))
 
 
 _TRACES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
@@ -236,6 +299,65 @@ def entries_code(f, psizes: dict) -> EnergyCode:
     sizes (``energy_codegen.cached_trace``).  Raises ``UnsupportedEnergy``
     as ``trace_entries`` does."""
     return cached_trace(_TRACES, trace_entries, f, psizes)
+
+
+def param_sizes(params: dict) -> dict:
+    """name -> values per point, from [..., nq, k] parameter tensors."""
+    return {k: int(v.shape[-1]) for k, v in params.items()}
+
+
+def check_operand(name, t, shape, like):
+    """Raise ValueError unless tensor ``t`` has ``like``'s device and type,
+    the shape ``shape``, and is contiguous."""
+    if t.device != like.device or t.dtype != like.dtype:
+        raise ValueError(
+            f"{name}: {t.dtype} on {t.device}, expected {like.dtype} on "
+            f"{like.device}"
+        )
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_cuda_operand(ue):
+    """Raise ValueError unless ``ue`` is a CUDA tensor in f32 or f64."""
+    if ue.device.type != "cuda":
+        raise ValueError(f"unsupported device {ue.device}")
+    if ue.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {ue.dtype}")
+
+
+def packed_params(code: EnergyCode, params: dict, nq: int, like):
+    """The kernel's parameter operand [nq, kParams] (None without
+    parameters), after checking ``params`` against the trace ``code``."""
+    if tuple(k for k, _ in code.param_sizes) != tuple(sorted(params)):
+        raise ValueError(f"parameters {sorted(params)} differ from the "
+                         f"trace's {[k for k, _ in code.param_sizes]}")
+    for k, size in code.param_sizes:
+        check_operand(k, params[k], (nq, size), like)
+    if not code.n_params:
+        return None
+    return torch.cat([params[k] for k, _ in code.param_sizes],
+                     dim=1).contiguous()
+
+
+def launch(lib, name: str, ue, B0, Ww, prm, A, nq: int, nd: int,
+           plan: LaunchPlan):
+    """Launch the kernel of ``lib`` on the current stream of ``ue``'s
+    device.  Raises RuntimeError where the launch fails, also where the
+    kernel refuses the plan; ``name`` names the kernel in the message."""
+    fn = lib.bj_launch_f32 if ue.dtype == torch.float32 else (
+        lib.bj_launch_f64)
+    with torch.cuda.device(ue.device):
+        stream = torch.cuda.current_stream(ue.device).cuda_stream
+        err = fn(ue.data_ptr(), B0.data_ptr(), Ww.data_ptr(),
+                 None if prm is None else prm.data_ptr(), A.data_ptr(),
+                 ue.shape[0], nq, nd, plan.elem_tile, plan.col_tile,
+                 plan.threads, plan.stages, plan.quad_stage,
+                 plan.quad_chunk, plan.smem_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 def blocked_element_jacobian_plain(f, ue, B0, W0, wq, params, vdim, sd):
@@ -288,6 +410,29 @@ def tiled_factor(W0, wq, sd, plan: LaunchPlan):
     return Ww.reshape(rows, -1, plan.col_tile).permute(1, 0, 2).contiguous()
 
 
+# table tensor -> {key: (stamp, derived tensor)}: operands the kernels
+# derive from the integrator's tables (the tile-major weighted factor, B0
+# from R), built once per table and kept while the table lives.
+# ``clear()`` makes the next calls build them again.
+DERIVED = WeakIdKeyDictionary()
+
+
+def derived(src, key, others, make):
+    """``make()``, built once per table tensor ``src`` and ``key`` and kept
+    while neither ``src`` nor any tensor of ``others`` changes: the stamp
+    holds their versions and addresses, and the entry holds ``others``, so
+    their memory cannot be reused under the same address."""
+    stamp = (src._version,) + tuple((t.data_ptr(), t._version)
+                                    for t in others)
+    per = DERIVED.get(src)
+    if per is None:
+        per = DERIVED[src] = {}
+    hit = per.get(key)
+    if hit is None or hit[0] != stamp:
+        hit = per[key] = (stamp, make(), others)
+    return hit[1]
+
+
 def blocked_element_jacobian(f, ue, B0, W0, wq, params, vdim, sd):
     """A [ne, vdim*nd, vdim*nd] = element Jacobians of energy ``f``
     (arguments as in ``blocked_element_jacobian_plain``).
@@ -299,13 +444,10 @@ def blocked_element_jacobian(f, ue, B0, W0, wq, params, vdim, sd):
     if ue.device.type == "cpu":
         return blocked_element_jacobian_plain(f, ue, B0, W0, wq, params,
                                               vdim, sd)
-    if ue.device.type != "cuda":
-        raise ValueError(f"unsupported device {ue.device}")
-    if ue.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {ue.dtype}")
-    if (vdim, sd) not in KERNEL_SHAPES:
+    check_cuda_operand(ue)
+    if (vdim, sd) not in BLOCKED_SHAPES:
         raise ValueError(f"(vdim, sd) = ({vdim}, {sd}) is not among the "
-                         f"compiled shapes {KERNEL_SHAPES}")
+                         f"compiled shapes {BLOCKED_SHAPES}")
     if ue.dim() != 2 or B0.dim() != 3:
         raise ValueError(f"ue: shape {tuple(ue.shape)}, B0: shape "
                          f"{tuple(B0.shape)}; expected [ne, nde] and "
@@ -320,34 +462,16 @@ def blocked_element_jacobian(f, ue, B0, W0, wq, params, vdim, sd):
     if code.n_input != vdim * sd:
         raise ValueError(f"the entries take n = {code.n_input} inputs, "
                          f"not vdim*sd = {vdim * sd}")
-    if tuple(k for k, _ in code.param_sizes) != tuple(sorted(params)):
-        raise ValueError(f"parameters {sorted(params)} differ from the "
-                         f"trace's {[k for k, _ in code.param_sizes]}")
-    for k, size in code.param_sizes:
-        check_operand(k, params[k], (nq, size), ue)
+    prm = packed_params(code, params, nq, ue)
     A = torch.empty((ne, vdim * nd, vdim * nd), dtype=ue.dtype,
                     device=ue.device)
     if ne == 0:
         return A
     plan = launch_plan(vdim, sd, nd, nq, ue.dtype)
-    Ww = tiled_factor(W0, wq, sd, plan)
-    prm = (torch.cat([params[k] for k, _ in code.param_sizes], dim=1)
-           .contiguous() if code.n_params else None)
-    lib = _library(code, vdim, sd)
-    launch = lib.bj_launch_f32 if ue.dtype == torch.float32 else (
-        lib.bj_launch_f64
-    )
-    with torch.cuda.device(ue.device):
-        stream = torch.cuda.current_stream(ue.device).cuda_stream
-        err = launch(
-            ue.data_ptr(), B0.data_ptr(), Ww.data_ptr(),
-            None if prm is None else prm.data_ptr(), A.data_ptr(), ne, nq,
-            nd, plan.elem_tile, plan.col_tile, plan.threads, plan.stages,
-            plan.quad_stage, plan.quad_chunk, plan.smem_bytes, stream,
-        )
-    if err != 0:  # also where the kernel refuses the plan
-        raise RuntimeError(
-            f"blocked_jacobian kernel launch failed: CUDA error {err}")
+    Ww = derived(W0, ("Ww", sd, plan), (wq,),
+                 lambda: tiled_factor(W0, wq, sd, plan))
+    launch(_library(code, vdim, sd), "blocked_jacobian", ue, B0, Ww, prm, A,
+           nq, nd, plan)
     blocked_element_jacobian.launches += 1
     return A
 
@@ -373,9 +497,9 @@ def blocked_refusal(intg) -> str | None:
     kernel, ``fused_jacobian.uses_blocked_kernel``), or None when it can."""
     t = intg.tables
     vdim, sd = intg.vdim[0], intg.sd[0]
-    if (vdim, sd) not in KERNEL_SHAPES:
+    if (vdim, sd) not in BLOCKED_SHAPES:
         return (f"(vdim, sd) = ({vdim}, {sd}) is not among the compiled "
-                f"shapes {KERNEL_SHAPES}")
+                f"shapes {BLOCKED_SHAPES}")
     if intg.dtype not in (torch.float32, torch.float64):
         return f"unsupported dtype {intg.dtype}"
     if t["B"][0].shape[0] != 1:

@@ -1,5 +1,6 @@
-"""Fused element-Jacobian assembly: x = R ue, closed-form Hessian entries,
-A = (w H) W, per element, in one hand-written CUDA kernel.
+"""Fused element-Jacobian assembly with the full factor W: x = R ue,
+closed-form Hessian entries, A = (w H) W, per element, in one hand-written
+CUDA kernel.
 
 Replaces the TPU kernel ``mfem_ad_tpu/ops/fused_jacobian.py:_kernel_tile``.
 For every element e of a structured single-space integrator
@@ -7,48 +8,25 @@ For every element e of a structured single-space integrator
     A_e[i, j] = sum_q w_q sum_{a,b} R[(q,a), i] H_ab(x_q) R[(q,b), j],
     x_q = R_q ue_e,
 
-computed as ``x = ue @ R.T``, the energy's ``hessian_closed_entries`` on
-``[ne, nq]`` tiles, then ``(H * w).reshape(ne, -1) @ W`` with the full
-factor W = Bf (x) Bf.  The kernel (``csrc/fused_jacobian.cu``) keeps H in
-registers; the plain PyTorch version (``fused_element_jacobian_plain``)
-materialises it.  ``fused_element_jacobian`` runs the plain version for
-tensors on the CPU and the kernel for tensors on a CUDA device.
-
-The kernel is compiled by ``ops/nvcc.py`` for sm_90a at first use into
-``mfem_ad_tpu_torch/_build/`` (under a name that hashes the source and the
-flags) and bound through ``ctypes``.
+with H the energy's ``hessian_closed_entries``.  This is the blocked
+kernel's GEMM (``csrc/blocked_jacobian.cuh``, ``ops/blocked_jacobian.py``)
+with vdim = 1, sd = n, nd = nde, B0 = Bf (R as [nq, nde, n]) and the full
+W = Bf (x) Bf as its factor: the same interpolation, the same (i, j)
+output layout and one GEMM over k = (q, a, b).  The entries are those
+``energy_codegen.trace_entries`` writes for the blocked kernel, so any
+energy whose closed entries trace takes this route wherever the tables
+hold a full W and no blocked W0 (``uses_blocked_kernel``).  The plain
+PyTorch version (``fused_element_jacobian_plain``) materialises H.
+``fused_element_jacobian`` runs the plain version for tensors on the CPU
+and the kernel for tensors on a CUDA device.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import os
-
 import torch
 
-from ..ad import LinearElasticityEnergy, NeoHookeanEnergy
-from . import nvcc
-
-SOURCE = os.path.join(nvcc.CSRC, "fused_jacobian.cu")
-
-# Sizes the kernel is compiled for: 2D GRAD|VECTOR input (n = vdim*sd = 4)
-# on Q1 quads (nde = vdim*nd = 8).
-KERNEL_N = 4
-KERNEL_NDE = 8
-SMEM_LIMIT = 232_448  # dynamic shared memory one Hopper block may use
-
-# energy class and dimension -> the kernel's Hessian entry function
-_CUDA_ENERGIES = {
-    (NeoHookeanEnergy, 2): 0,
-    (LinearElasticityEnergy, 2): 1,
-}
-
-
-def cuda_energy_id(f) -> int | None:
-    """The kernel's entry-function id for energy ``f``, or None when the
-    kernel has no CUDA Hessian entries for it."""
-    return _CUDA_ENERGIES.get((type(f), getattr(f, "dim", None)))
+from . import blocked_jacobian as bj
+from .blocked_jacobian import check_operand
 
 
 def uses_blocked_kernel(intg, s: int = 0) -> bool:
@@ -84,6 +62,23 @@ def _tables_on_cuda(intg) -> bool:
     return intg.tables["w"].device.type == "cuda"
 
 
+def full_w_refusal(intg) -> str | None:
+    """Why the full-W instantiation of the element-Jacobian GEMM cannot
+    serve an integrator whose tables admit a fused kernel with a full W,
+    or None when it can: its input width must be compiled and a launch
+    plan must fit.  Both the closed-entries and the AD route ask."""
+    n, nde = intg.n_input, intg.vdim[0] * intg.nd[0]
+    if n not in bj.FULL_WIDTHS:
+        return f"n = {n} is not among the compiled widths {bj.FULL_WIDTHS}"
+    if intg.dtype not in (torch.float32, torch.float64):
+        return f"unsupported dtype {intg.dtype}"
+    try:
+        bj.launch_plan(1, n, nde, intg.nq, intg.dtype)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
 def kernel_route_refusal(intg) -> str | None:
     """Why the closed-entries kernel the tables select (blocked-W0 where
     ``uses_blocked_kernel``, else full-W) cannot assemble this integrator's
@@ -99,28 +94,15 @@ def kernel_route_refusal(intg) -> str | None:
     if not supports_fused(intg):
         return "tables do not admit a fused kernel (supports_fused)"
     if uses_blocked_kernel(intg):
-        from .blocked_jacobian import blocked_refusal
-
-        return blocked_refusal(intg)
-    if cuda_energy_id(intg.f) is None:
-        return f"no CUDA Hessian entries for {type(intg.f).__name__}"
-    if intg.n_input != KERNEL_N or intg.vdim[0] * intg.nd[0] != KERNEL_NDE:
-        return f"kernel is compiled for n={KERNEL_N}, nde={KERNEL_NDE}"
-    if set(t["static"]) != {"lambda", "mu"}:
-        return "kernel takes exactly the parameters lambda and mu"
-    if any(v.shape[-1] != 1 for v in t["static"].values()):
-        return "lambda and mu must be scalar per point"
-    if intg.dtype not in (torch.float32, torch.float64):
-        return f"unsupported dtype {intg.dtype}"
-    if _smem_bytes(intg.nq, intg.dtype) > SMEM_LIMIT:
-        return f"nq={intg.nq} does not fit in one block's shared memory"
+        return bj.blocked_refusal(intg)
+    why = full_w_refusal(intg)
+    if why is not None:
+        return why
+    try:
+        bj.entries_code(intg.f, bj.param_sizes(t["static"]))
+    except bj.UnsupportedEnergy as e:
+        return f"the closed entries do not trace: {e}"
     return None
-
-
-def _smem_bytes(nq: int, dtype) -> int:
-    n, nde = KERNEL_N, KERNEL_NDE
-    elem = torch.empty((), dtype=dtype).element_size()
-    return (nq * n * n * nde * nde + nq * n * nde + 2 * nq) * elem
 
 
 def fused_element_jacobian_plain(f, ue, R, W, wq, params):
@@ -155,41 +137,33 @@ def fused_element_jacobian_plain(f, ue, R, W, wq, params):
     return ((H * wq[:, None]).reshape(ne, -1) @ W).reshape(ne, nde, nde)
 
 
-@functools.lru_cache(maxsize=None)
-def _source() -> str:
-    with open(SOURCE) as fh:
-        return fh.read()
+def full_w_operands(R, W, wq, n: int, plan):
+    """The full-W instantiation's B0 = Bf [nq, nde, n] (R read as
+    [nq, n, nde]) and its tile-major weighted factor, each built once per
+    table (``blocked_jacobian.derived``)."""
+    nq, nde = wq.shape[0], R.shape[1]
+    B0 = bj.derived(R, ("B0", n), (), lambda: R.reshape(
+        nq, n, nde).transpose(1, 2).contiguous())
+    Ww = bj.derived(W, ("Ww", n, plan), (wq,),
+                    lambda: bj.tiled_factor(W, wq, n, plan))
+    return B0, Ww
 
 
-def build_library() -> str:
-    """Compile the kernel source when its library is missing; returns the
-    compiler's report (empty when the library already exists).  Raises
-    when nvcc is missing or fails."""
-    return nvcc.build_library("fused_jacobian", _source(), ())
-
-
-_ARGTYPES = [ctypes.c_void_p] * 6 + [
-    ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-
-
-def _library():
-    return nvcc.load_library("fused_jacobian", _source(), (),
-                             {"fj_launch_f32": _ARGTYPES,
-                              "fj_launch_f64": _ARGTYPES})
-
-
-def check_operand(name, t, shape, like):
-    """Raise ValueError unless tensor ``t`` has ``like``'s device and type,
-    the shape ``shape``, and is contiguous."""
-    if t.device != like.device or t.dtype != like.dtype:
-        raise ValueError(
-            f"{name}: {t.dtype} on {t.device}, expected {like.dtype} on "
-            f"{like.device}"
-        )
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def check_full_w_operands(ue, R, W, wq, n: int):
+    """Check the full-W kernel's operands at input width ``n``; returns
+    (ne, nde, nq)."""
+    if n not in bj.FULL_WIDTHS:
+        raise ValueError(f"n = {n} is not among the compiled widths "
+                         f"{bj.FULL_WIDTHS}")
+    if ue.dim() != 2:
+        raise ValueError(f"ue: shape {tuple(ue.shape)}, expected [ne, nde]")
+    ne, nde = ue.shape
+    nq = wq.shape[0]
+    check_operand("ue", ue, (ne, nde), ue)
+    check_operand("R", R, (nq * n, nde), ue)
+    check_operand("W", W, (nq * n * n, nde * nde), ue)
+    check_operand("wq", wq, (nq,), ue)
+    return ne, nde, nq
 
 
 def fused_element_jacobian(f, ue, R, W, wq, params):
@@ -197,49 +171,23 @@ def fused_element_jacobian(f, ue, R, W, wq, params):
     ``fused_element_jacobian_plain``).
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    (counted in ``fused_element_jacobian.launches``) or raise: there is no
-    fallback on the device."""
+    (counted in ``fused_element_jacobian.launches``) or raise: entries that
+    do not trace raise ``UnsupportedEnergy``; there is no fallback on the
+    device."""
     if ue.device.type == "cpu":
         return fused_element_jacobian_plain(f, ue, R, W, wq, params)
-    if ue.device.type != "cuda":
-        raise ValueError(f"unsupported device {ue.device}")
-    energy = cuda_energy_id(f)
-    if energy is None:
-        raise ValueError(f"no CUDA Hessian entries for {type(f).__name__}")
-    if ue.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {ue.dtype}")
-    if set(params) != {"lambda", "mu"}:
-        raise ValueError("the kernel takes exactly lambda and mu")
-    n, nde = KERNEL_N, KERNEL_NDE
-    ne = ue.shape[0]
-    nq = wq.shape[0]
-    if _smem_bytes(nq, ue.dtype) > SMEM_LIMIT:
-        raise ValueError(f"nq={nq} exceeds the kernel's shared memory")
-    check_operand("ue", ue, (ne, nde), ue)
-    check_operand("R", R, (nq * n, nde), ue)
-    check_operand("W", W, (nq * n * n, nde * nde), ue)
-    check_operand("wq", wq, (nq,), ue)
-    for k in ("lambda", "mu"):
-        check_operand(k, params[k], (nq, 1), ue)
+    bj.check_cuda_operand(ue)
+    code = bj.entries_code(f, bj.param_sizes(params))
+    n = code.n_input
+    ne, nde, nq = check_full_w_operands(ue, R, W, wq, n)
+    prm = bj.packed_params(code, params, nq, ue)
     A = torch.empty((ne, nde, nde), dtype=ue.dtype, device=ue.device)
     if ne == 0:
         return A
-    # fold the element-shared quadrature weights into W's rows
-    Ww = (W * wq.repeat_interleave(n * n)[:, None]).contiguous()
-    lam = params["lambda"].reshape(nq)
-    mu = params["mu"].reshape(nq)
-    lib = _library()
-    launch = lib.fj_launch_f32 if ue.dtype == torch.float32 else (
-        lib.fj_launch_f64
-    )
-    with torch.cuda.device(ue.device):
-        stream = torch.cuda.current_stream(ue.device).cuda_stream
-        err = launch(
-            ue.data_ptr(), R.data_ptr(), Ww.data_ptr(), lam.data_ptr(),
-            mu.data_ptr(), A.data_ptr(), ne, nq, energy, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fused_jacobian kernel launch failed: CUDA error {err}")
+    plan = bj.launch_plan(1, n, nde, nq, ue.dtype)
+    B0, Ww = full_w_operands(R, W, wq, n, plan)
+    bj.launch(bj._library(code, 1, n), "fused_jacobian", ue, B0, Ww, prm, A,
+              nq, nde, plan)
     fused_element_jacobian.launches += 1
     return A
 
@@ -266,8 +214,6 @@ def element_jacobian_via_kernel(intg, ublocks):
     if why is not None:
         raise ValueError(f"kernel route unavailable: {why}")
     if uses_blocked_kernel(intg):
-        from . import blocked_jacobian as bj
-
         return bj.blocked_element_jacobian(
             intg.f, *bj.blocked_inputs(intg, ublocks), intg.vdim[0],
             intg.sd[0])

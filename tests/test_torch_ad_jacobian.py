@@ -153,7 +153,8 @@ def host_lib(tmp_path_factory):
     """One host library with every test energy: for energy ``name``,
     ``name_vgh(x, p, val, grad, hess)`` evaluates the value with the plain
     scalar type and the derivatives with ``ad::point_gradient`` and
-    ``ad::point_hessian`` (the kernel's own per-point routine)."""
+    ``ad::point_hessian``, and ``name_entries(x, p, hess)`` the kernel's
+    entries stage ``ad::HessianEntries<E>::eval``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++")
@@ -173,6 +174,10 @@ def host_lib(tmp_path_factory):
             f"  *val = E_{name}::eval<double>(x, p);",
             f"  ad::point_gradient<double, E_{name}>(x, p, g);",
             f"  ad::point_hessian<double, E_{name}>(x, p, h);",
+            "}",
+            f'extern "C" void {name}_entries(const double* x, '
+            "const double* p, double* h) {",
+            f"  ad::HessianEntries<E_{name}>::eval<double>(x, p, h);",
             "}",
             "",
         ]
@@ -194,17 +199,32 @@ def _point(name, seed):
     return 0.3 * rng.standard_normal(f.n_input)
 
 
+def _host_params(name):
+    _, _, sizes, pvals = ENERGIES[name]
+    return np.concatenate([np.asarray(pvals[k], float) for k in sorted(sizes)]
+                          + [np.zeros(1)])
+
+
+def _ptr(a):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+
 def _host_eval(lib, name, x):
-    f, _, sizes, pvals = ENERGIES[name]
-    n = f.n_input
-    p = np.concatenate([np.asarray(pvals[k], float) for k in sorted(sizes)]
-                       + [np.zeros(1)])
+    n = ENERGIES[name][0].n_input
+    p = _host_params(name)
     val = np.zeros(1)
     g, h = np.zeros(n), np.zeros(n * n)
-    ptr = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))  # noqa
     fn = getattr(lib, f"{name}_vgh")
-    fn(ptr(np.ascontiguousarray(x)), ptr(p), ptr(val), ptr(g), ptr(h))
+    fn(_ptr(np.ascontiguousarray(x)), _ptr(p), _ptr(val), _ptr(g), _ptr(h))
     return val[0], g, h.reshape(n, n)
+
+
+def _host_entries(lib, name, x):
+    n = ENERGIES[name][0].n_input
+    h = np.full(n * n, np.nan)
+    getattr(lib, f"{name}_entries")(_ptr(np.ascontiguousarray(x)),
+                                    _ptr(_host_params(name)), _ptr(h))
+    return h.reshape(n, n)
 
 
 @pytest.mark.parametrize("name", sorted(ENERGIES))
@@ -229,6 +249,23 @@ def test_generated_energy_matches_torch_func_and_jax(host_lib, name):
                                            atol=1e-12 * scale)
 
 
+@pytest.mark.parametrize("name", sorted(ENERGIES))
+def test_hessian_entries_match_point_hessian_and_jax(host_lib, name):
+    """``ad::HessianEntries<E>::eval``, the AD kernel's entries stage,
+    writes every entry of ``point_hessian`` (the same bits) and matches
+    ``jax.hessian`` (1e-12 relative, f64)."""
+    _, fj, _, pvals = ENERGIES[name]
+    pj = {k: jnp.asarray(v, dtype=jnp.float64) for k, v in pvals.items()}
+    for seed in (0, 1, 2):
+        x = _point(name, seed)
+        h = _host_entries(host_lib, name, x)
+        np.testing.assert_array_equal(h, _host_eval(host_lib, name, x)[2])
+        want = np.asarray(jax.hessian(lambda y: fj.energy(y, pj))(
+            jnp.asarray(x)))
+        scale = max(1e-300, float(np.abs(want).max()))
+        np.testing.assert_allclose(h, want, rtol=0, atol=1e-12 * scale)
+
+
 def test_unsupported_energy_names_the_operation():
     dot = pad.ADFunction(2, lambda x, p: torch.dot(x, x))
     with pytest.raises(UnsupportedEnergy, match="dot"):
@@ -242,16 +279,22 @@ def test_unsupported_energy_names_the_operation():
 
 
 def test_kernel_source_names_every_compiled_size():
+    """The AD library instantiates the blocked kernel's GEMM at vdim = 1,
+    sd = n with the nested-dual entries stage, in f32 and f64; nde is a
+    run-time argument, and a width outside FULL_WIDTHS is refused."""
     f, _, sizes, _ = ENERGIES["minimal_surface"]
     src = adj.kernel_source(trace_energy(f, sizes))
-    for nde in (4, 9):
-        assert f"case {nde}: return ad::launch<float, {nde}, Energy>" in src
-        assert f"case {nde}: return ad::launch<double, {nde}, Energy>" in src
-    assert "case 8:" not in src
+    for t in ("float", "double"):
+        assert (f"bj::launch<{t}, 1, 2, ad::HessianEntries<Energy>>"
+                in src)
+    assert "__global__" not in src
     a = adj.library_path(trace_energy(f, sizes))
     b = adj.library_path(trace_energy(pad.ADFunction(
         2, _minimal_surface(0.1)), sizes))
     assert a != b and a.startswith(nvcc.BUILD_DIR)
+    wide = pad.ADFunction(5, lambda x, p: x[0] * x[4])
+    with pytest.raises(ValueError, match="compiled widths"):
+        adj.kernel_source(trace_energy(wide, {}))
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +375,33 @@ def test_plain_matches_jax_generic_branch_interpret(energy, order):
     np.testing.assert_allclose(A, A_pallas, rtol=0, atol=_tol(A_pallas))
 
 
+@pytest.mark.parametrize("energy,order,dim,n,nde", [
+    ("neohookean", 2, 2, 4, 18),  # generic branch, 2D p2 vector
+    ("diffusion", 2, 3, 3, 27),   # closed branch, 3D Q2 scalar
+])
+def test_plain_matches_jax_at_the_new_full_w_sizes(energy, order, dim, n,
+                                                   nde):
+    """Sizes the AD kernel serves since its entries stage joined the GEMM
+    kernel (nde > 9): the plain version against JAX's ``_kernel`` in
+    interpret mode, generic branch (hess=None, hess_entries=None) and
+    closed branch (Diffusion's hessian_closed), within 1e-12 of max|A|."""
+    ji, pi, u = _pair(energy, 2, order, dim)
+    assert (pi.n_input, pi.vdim[0] * pi.nd[0]) == (n, nde)
+    # 0.01/n: at 0.1/n, neo-Hookean at p2 has det F <= 0 at some points,
+    # where both packages give NaN
+    A, args = _plain(pi, u / 10)
+    assert np.isfinite(A).all()
+    ue, R, W, wq = (jnp.asarray(a.numpy()) for a in args[:4])
+    params = {k: jnp.asarray(v.numpy()) for k, v in args[4].items()}
+    hess = None if energy == "neohookean" else ji.f.hessian_closed
+    A_pallas = np.asarray(jax_fused_element_jacobian(
+        ue, R, W, wq, ji.f.energy, params, pi.nq, n, nde, block=8,
+        interpret=True, hess=hess, hess_entries=None))
+    assert A.shape == (2 ** dim, nde, nde)
+    np.testing.assert_allclose(A, A_pallas, rtol=0,
+                               atol=1e-12 * float(np.abs(A_pallas).max()))
+
+
 @pytest.mark.parametrize("energy,order,dim", [
     ("diffusion", 1, 3), ("minimal_surface", 2, 2), ("elasticity", 1, 2)])
 def test_plain_matches_two_stage(energy, order, dim):
@@ -374,15 +444,17 @@ def test_kernel_ad_route_raises_on_cpu_and_auto_takes_two_stage():
     ("mass", 2, 1, 2, None),
     ("diffusion", 2, 1, 3, None),
     ("neohookean", 2, 1, 2, None),
-    ("neohookean", 2, 2, 2, "compiled sizes"),
-    ("elasticity", 2, 1, 3, "compiled sizes"),
+    ("neohookean", 2, 2, 2, None),
+    ("elasticity", 2, 1, 3, None),
+    ("diffusion", 2, 2, 3, None),
     ("neohookean", 1, 2, 3, "W0"),
 ])
 def test_ad_route_rules_with_tables_taken_for_cuda(monkeypatch, energy, n,
                                                    order, dim, refusal):
     """The rules after the device check, with the device check stubbed:
-    W0-only configs and sizes outside the compiled set are refused; every
-    refusal names its reason."""
+    every full-W size takes the AD kernel, among them 2D p2 vector
+    (n=4, nde=18), 3D Q1 and Q2 scalar (3, 8) and (3, 27) and 3D p1
+    vector (9, 24); W0-only configs are refused, naming their reason."""
     _, pi, _ = _pair(energy, n, order, dim)
     monkeypatch.setattr(adj, "_tables_on_cuda", lambda intg: True)
     why = adj.ad_kernel_route_refusal(pi)

@@ -242,8 +242,25 @@ def test_kernel_source_and_library_name():
     assert bj.entries_code(f, PARAMS) is bj.entries_code(f, dict(PARAMS))
 
 
-# (dim, order): 2D p2/p3 and 3D p1/p2/p3, the shapes the kernel serves
-PLAN_SHAPES = [(2, 2), (2, 3), (3, 1), (3, 2), (3, 3)]
+# The shapes the kernel serves, keyed for the test ids: "dim-order" for the
+# blocked factor W0 at 2D p2/p3 and 3D p1/p2/p3 (vdim = sd = dim); the
+# full-W instantiations (vdim = 1, sd = n, nd = nde) at the main path's
+# shapes and the AD route's sizes: the 2D p1 vector headline (n=4, nde=8),
+# Poisson Q1 and Q2 (2, 4) and (2, 9), Mass Q1 (1, 4), 2D p2 vector
+# (4, 18), 3D Q1 and Q2 scalar (3, 8) and (3, 27), 3D p1 vector (9, 24)
+# and 2D p2 vector VALUE|GRAD (6, 18).
+PLAN_SHAPES = ["2-2", "2-3", "3-1", "3-2", "3-3"]
+FULL_W_CASES = {  # key -> (energy, dim, order, mode, vdim)
+    "full-headline": ("elasticity", 2, 1, "vector", 2),
+    "full-poisson-q1": ("diffusion", 2, 1, "grad", 1),
+    "full-poisson-q2": ("diffusion", 2, 2, "grad", 1),
+    "full-mass-q1": ("mass", 2, 1, "value", 1),
+    "full-2d-p2-vector": ("elasticity", 2, 2, "vector", 2),
+    "full-3d-q1": ("diffusion", 3, 1, "grad", 1),
+    "full-3d-q2": ("diffusion", 3, 2, "grad", 1),
+    "full-3d-p1-vector": ("elasticity", 3, 1, "vector", 3),
+    "full-2d-p2-value-grad": ("value_grad", 2, 2, "value_grad", 2),
+}
 
 
 def _shape(dim, order):
@@ -256,50 +273,98 @@ def _shape(dim, order):
     return pi.nd[0], pi.nq
 
 
+@functools.lru_cache(maxsize=None)
+def _plan_shape(case):
+    """(vdim, sd, nd, nq) of the kernel at ``case``, with the full W
+    installed for the full-W cases."""
+    if not case.startswith("full"):
+        dim, order = map(int, case.split("-"))
+        return (dim, dim, *_shape(dim, order))
+    energy, dim, order, mode, vdim = FULL_W_CASES[case]
+    f = {"elasticity": lambda: pad.LinearElasticityEnergy(dim, 1.0, 1.0),
+         "diffusion": lambda: pad.DiffusionEnergy(dim),
+         "mass": lambda: pad.MassEnergy(1),
+         "value_grad": lambda: pad.ADFunction(
+             2 * (1 + dim), lambda x, p: 0.5 * (x * x).sum())}[energy]()
+    ev = {"vector": PADEval.GRAD | PADEval.VECTOR, "grad": PADEval.GRAD,
+          "value": PADEval.VALUE,
+          "value_grad": PADEval.VALUE | PADEval.GRAD | PADEval.VECTOR}[mode]
+    m = PM.make_cartesian_2d(1, 1) if dim == 2 else PM.make_cartesian_3d(
+        1, 1, 1)
+    pi = PIntegrator(f, [PFESpace(m, order, vdim=vdim)], [ev], device="cpu")
+    assert "0_0" in pi.tables["W"]
+    return 1, pi.n_input, pi.vdim[0] * pi.nd[0], pi.nq
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dim,order", PLAN_SHAPES)
-def test_launch_plan_fits_the_card_and_the_kernel_checks(dim, order, dtype):
+@pytest.mark.parametrize("case", PLAN_SHAPES + list(FULL_W_CASES))
+def test_launch_plan_fits_the_card_and_the_kernel_checks(case, dtype):
     """The plan the wrapper passes satisfies every check of
     ``bj::launch``: whole warps of LM x LN groups, at least 4 warps, the
     232,448 bytes a block may use, whole ring slots of quadrature points,
-    and the kernel's own shared-memory formula."""
-    nd, nq = _shape(dim, order)
-    p = bj.launch_plan(dim, dim, nd, nq, dtype)
+    and the kernel's own shared-memory formula; for the blocked factor and
+    for the full-W instantiations."""
+    vdim, sd, nd, nq = _plan_shape(case)
+    p = bj.launch_plan(vdim, sd, nd, nq, dtype)
     elem = torch.empty((), dtype=dtype).element_size()
     groups = p.col_tile // bj.TILE_N
+    vd2 = vdim * vdim
     assert p.col_tile % bj.TILE_N == 0
     assert p.threads % 32 == 0 and p.threads >= 128
     assert p.threads <= max(bj.THREAD_CHOICES[dtype])
     assert p.threads % groups == 0
     assert p.threads // groups % (32 // bj.lanes_n(groups)) == 0
-    assert 0 < p.elem_tile * dim * dim <= p.row_tile
-    assert p.row_tile - p.elem_tile * dim * dim < dim * dim  # padding only
+    assert 0 < p.elem_tile * vd2 <= p.row_tile
+    assert p.row_tile - p.elem_tile * vd2 < vd2  # padding only
     assert 2 <= p.stages <= 4
     assert nq % p.quad_stage == 0
     assert p.quad_chunk % p.quad_stage == 0 and p.quad_chunk <= nq
     assert p.threads % p.col_tile == 0  # one write-out column per thread
-    sd2 = dim * dim
-    nde2 = (dim * nd) ** 2
+    sd2 = sd * sd
+    nde2 = (vdim * nd) ** 2
     contiguous = nd * nd <= p.col_tile and nde2 * elem % 16 == 0
     staged = (p.elem_tile * nde2 if contiguous
               else p.row_tile // 2 * (p.col_tile + 4))
     ring = max(p.stages * p.quad_stage * sd2 * p.col_tile, staged)
     assert p.smem_bytes == bj.BAR_BYTES + elem * (
-        ring + p.quad_chunk * sd2 * p.row_tile + p.elem_tile * dim * nd)
+        ring + p.quad_chunk * sd2 * p.row_tile + p.elem_tile * vdim * nd)
     assert p.smem_bytes <= bj.SMEM_LIMIT == 232_448
     assert p.padded_cols(nd) >= nd * nd
     assert p.padded_cols(nd) % p.col_tile == 0
 
 
-@pytest.mark.parametrize("dim,order", [(2, 2), (3, 1), (3, 2)])
+@pytest.mark.parametrize("case", ["2-2", "3-1", "3-2", "full-headline",
+                                  "full-poisson-q1", "full-poisson-q2",
+                                  "full-2d-p2-vector"])
 def test_launch_plan_computes_entries_once_per_element_on_the_main_path(
-        dim, order):
-    """At 2D p2, 3D p1 and 3D p2 in f32 the entries of an element are
-    computed once per call: resident for every column tile, or one column
-    tile for every chunk of points."""
-    nd, nq = _shape(dim, order)
-    p = bj.launch_plan(dim, dim, nd, nq, torch.float32)
+        case):
+    """At the main path's shapes in f32 (the blocked factor at 2D p2, 3D
+    p1 and 3D p2; the full W at the headline, Poisson Q1 and Q2 and 2D p2
+    vector) the entries of an element are computed once per call:
+    resident for every column tile, or one column tile for every chunk of
+    points."""
+    vdim, sd, nd, nq = _plan_shape(case)
+    p = bj.launch_plan(vdim, sd, nd, nq, torch.float32)
     assert p.quad_chunk == nq or p.padded_cols(nd) == p.col_tile
+
+
+@pytest.mark.parametrize("case,threads,blocks,slots", [
+    ("full-headline", 128, 3, 3),    # K = 144: three blocks, 3 slots
+    ("full-poisson-q1", 128, 2, 1),  # K = 36: one slot of all 9 points
+    ("full-poisson-q2", 192, 2, 1),  # K = 64: one slot of all 16 points
+])
+def test_full_w_plans_fill_an_sm_with_small_blocks(case, threads, blocks,
+                                                   slots):
+    """At vdim = 1 in f32 the plan takes 128-thread blocks where a column
+    tile allows, as many blocks of them an SM as 12 warps make where
+    shared memory allows (else one fewer), and few, large ring slots."""
+    vdim, sd, nd, nq = _plan_shape(case)
+    p = bj.launch_plan(vdim, sd, nd, nq, torch.float32)
+    assert p.threads == threads
+    per_sm = bj.SMEM_SM // (p.smem_bytes + 1024)
+    assert min(per_sm, bj.WARPS_F32 * 32 // p.threads) == blocks
+    assert nq // p.quad_stage == slots
+    assert p.quad_stage * sd * sd >= bj.FULL_W_STAGE_ROWS or slots == 1
 
 
 # ---------------------------------------------------------------------------

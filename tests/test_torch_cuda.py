@@ -1,5 +1,6 @@
-"""The CUDA element-Jacobian kernels (closed entries full-W and blocked-W0,
-and generic AD) against their plain PyTorch versions, on the card.  Skips where there is
+"""The CUDA element-Jacobian kernel's three instantiations (closed entries
+against the full W and against the blocked W0, and generic AD against the
+full W) against their plain PyTorch versions, on the card.  Skips where there is
 no CUDA device.  This file imports neither jax nor the JAX package, so it
 also runs on a machine without them:
 
@@ -70,6 +71,41 @@ def test_kernel_matches_plain_on_card(cuda, energy, dtype, nx, ny):
     assert float((A - A_plain).abs().max()) <= TOL[dtype] * scale
 
 
+class _QuarticDiffusion(ADFunction):
+    """0.5 |g|^2 + 0.25 g_0^4 with closed entries: not a library energy."""
+
+    def __init__(self):
+        super().__init__(2)
+
+    def energy(self, g, p):
+        return 0.5 * (g[0] * g[0] + g[1] * g[1]) + 0.25 * g[0] ** 4
+
+    def hessian_closed_entries(self, g, p):
+        return [[1.0 + 3.0 * g[0] * g[0], 0.0], [0.0, 1.0]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_full_w_kernel_takes_any_energy_whose_entries_trace(cuda, dtype):
+    """A scalar 2D p1 energy with closed entries (n=2, nde=4, 61x37: a
+    ragged tile) launches the full-W instantiation and matches its plain
+    version."""
+    fes = FESpace(M.make_cartesian_2d(61, 37), 1)
+    intg = ADBlockIntegrator(_QuarticDiffusion(), [fes], [ADEval.GRAD],
+                             device=cuda, dtype=dtype)
+    rng = np.random.default_rng(8)
+    u = torch.as_tensor(0.3 * rng.standard_normal(fes.ndof), dtype=dtype,
+                        device=cuda)
+    before = fj.fused_element_jacobian.launches
+    A = intg.element_jacobians([u])
+    A_plain = fj.fused_element_jacobian_plain(intg.f,
+                                              *fj.kernel_inputs(intg, [u]))
+    torch.cuda.synchronize()
+    assert fj.fused_element_jacobian.launches == before + 1
+    assert A.shape == (61 * 37, 4, 4) and torch.isfinite(A).all()
+    scale = float(A_plain.abs().max())
+    assert float((A - A_plain).abs().max()) <= TOL[dtype] * scale
+
+
 def test_auto_route_takes_the_kernel_on_card(cuda):
     intg, u = _integrator("neohookean", 8, 8, 1, torch.float32, cuda)
     assert fj.kernel_route_refusal(intg) is None
@@ -123,23 +159,38 @@ class _MinimalSurface(ADFunction):
         return torch.sqrt(gg + 1.0) + 0.05 * gg
 
 
-AD_CASES = {  # name -> (energy, order, mode, vdim)
-    "diffusion_p1": (lambda: DiffusionEnergy(2), 1, ADEval.GRAD, 1),
-    "diffusion_p2": (lambda: DiffusionEnergy(2), 2, ADEval.GRAD, 1),
-    "mass_p1": (lambda: MassEnergy(1), 1, ADEval.VALUE, 1),
+AD_CASES = {  # name -> (energy, order, mode, vdim, dim)
+    "diffusion_p1": (lambda: DiffusionEnergy(2), 1, ADEval.GRAD, 1, 2),
+    "diffusion_p2": (lambda: DiffusionEnergy(2), 2, ADEval.GRAD, 1, 2),
+    "mass_p1": (lambda: MassEnergy(1), 1, ADEval.VALUE, 1, 2),
     "neohookean_p1": (lambda: NeoHookeanEnergy(2, 1.0, 1.0), 1,
-                      ADEval.GRAD | ADEval.VECTOR, 2),
-    "minimal_surface_p2": (_MinimalSurface, 2, ADEval.GRAD, 1),
+                      ADEval.GRAD | ADEval.VECTOR, 2, 2),
+    "minimal_surface_p2": (_MinimalSurface, 2, ADEval.GRAD, 1, 2),
+    # sizes with nde > 9, served since the AD entries stage joined the GEMM
+    # kernel: 2D p2 vector (n=4, nde=18), 3D Q1 and Q2 scalar (3, 8) and
+    # (3, 27), 3D p1 vector (9, 24)
+    "neohookean_p2": (lambda: NeoHookeanEnergy(2, 1.0, 1.0), 2,
+                      ADEval.GRAD | ADEval.VECTOR, 2, 2),
+    "diffusion3d_p1": (lambda: DiffusionEnergy(3), 1, ADEval.GRAD, 1, 3),
+    "diffusion3d_p2": (lambda: DiffusionEnergy(3), 2, ADEval.GRAD, 1, 3),
+    "elasticity3d_p1": (lambda: LinearElasticityEnergy(3, 1.0, 1.0), 1,
+                        ADEval.GRAD | ADEval.VECTOR, 3, 3),
 }
 
 
 def _ad_integrator(case, nx, ny, dtype, device):
-    make, order, mode, vdim = AD_CASES[case]
-    fes = FESpace(M.make_cartesian_2d(nx, ny), order, vdim=vdim)
+    """The case on an nx x ny mesh (nx x ny x 2 in 3D): 3x3 and 61x37 give
+    element counts that are multiples of no launch plan's element tile."""
+    make, order, mode, vdim, dim = AD_CASES[case]
+    m = (M.make_cartesian_2d(nx, ny) if dim == 2
+         else M.make_cartesian_3d(nx, ny, 2))
+    fes = FESpace(m, order, vdim=vdim)
     intg = ADBlockIntegrator(make(), [fes], [mode], device=device,
                              dtype=dtype)
     rng = np.random.default_rng(6)
-    u = (0.1 / max(nx, ny)) * rng.standard_normal(fes.ndof)
+    # 0.01/n at p2 vector: at 0.1/n neo-Hookean has det F <= 0 there
+    amp = 0.01 if order > 1 and vdim > 1 else 0.1
+    u = (amp / max(nx, ny)) * rng.standard_normal(fes.ndof)
     return intg, torch.as_tensor(u, dtype=dtype, device=device)
 
 
@@ -156,7 +207,8 @@ def test_ad_kernel_matches_plain_on_card(cuda, case, dtype, nx, ny):
     torch.cuda.synchronize()
     assert adj.ad_element_jacobian.launches == before + 1
     nde = intg.vdim[0] * intg.nd[0]
-    assert A.shape == (nx * ny, nde, nde) and torch.isfinite(A).all()
+    ne = intg.tables["edof"][0].shape[0]
+    assert A.shape == (ne, nde, nde) and torch.isfinite(A).all()
     scale = float(A_plain.abs().max())
     assert float((A - A_plain).abs().max()) <= TOL[dtype] * scale
 
@@ -204,7 +256,7 @@ def test_ad_wrapper_rejects_bad_operands_on_card(cuda):
     ue, R, W, w, params = fj.kernel_inputs(intg, [u])
     f = intg.f
     before = adj.ad_element_jacobian.launches
-    with pytest.raises(ValueError, match="compiled sizes"):
+    with pytest.raises(ValueError, match="shape"):
         adj.ad_element_jacobian(f, ue[:, :6].contiguous(), R, W, w, params)
     with pytest.raises(ValueError, match="shape"):
         adj.ad_element_jacobian(f, ue, R[:-1].contiguous(), W, w, params)

@@ -4,6 +4,11 @@ package's Pallas kernel ``_kernel_tile`` run in interpret mode (as
 tests/test_ops.py runs it) and against JAX's two-stage route, plus the
 routing rules on a host without a GPU.
 
+The CUDA kernel is the blocked kernel's GEMM at vdim = 1, sd = n
+(``ops/blocked_jacobian.py``): its launch plans are tested in
+tests/test_torch_blocked_jacobian.py, and this file checks the route to
+it, its operands and that its function is the blocked one at vdim = 1.
+
 Tolerance: atol 1e-10 * max(1, max|A|) in f64, as tests/test_ops.py holds
 the Pallas kernel to the two-stage route."""
 
@@ -31,7 +36,9 @@ from mfem_ad_tpu_torch.adeval import ADEval as PADEval
 from mfem_ad_tpu_torch.convert import tables_from_numpy, vector_from_numpy
 from mfem_ad_tpu_torch.fespace import FESpace as PFESpace
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator as PIntegrator
+from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
+from mfem_ad_tpu_torch.ops import nvcc
 
 F64 = torch.float64
 ENERGIES = {"neohookean": "NeoHookeanEnergy",
@@ -124,11 +131,133 @@ def test_supports_fused_matches_jax(energy, n, order, dim):
     assert fj.supports_fused(pi) == jax_supports_fused(ji)
 
 
-def test_cuda_energy_entries_cover_the_2d_energies_only():
-    assert fj.cuda_energy_id(pad.NeoHookeanEnergy(2, 1.0, 1.0)) == 0
-    assert fj.cuda_energy_id(pad.LinearElasticityEnergy(2, 1.0, 1.0)) == 1
-    assert fj.cuda_energy_id(pad.NeoHookeanEnergy(3, 1.0, 1.0)) is None
-    assert fj.cuda_energy_id(pad.DiffusionEnergy(2)) is None
+@pytest.mark.parametrize("energy,refusal", [
+    ("neohookean", None), ("elasticity", None),
+    ("diffusion", "DiffusionEnergy has no closed Hessian entries"),
+])
+def test_full_w_route_rules_with_tables_taken_for_cuda(monkeypatch, energy,
+                                                       refusal):
+    """With the device check stubbed, both closed-entries energies at 2D
+    p1 (a full W, no W0) take the full-W instantiation of the GEMM
+    kernel; an energy without closed entries is refused by name."""
+    _, pi, _ = _pair(energy, 2)
+    monkeypatch.setattr(fj, "_tables_on_cuda", lambda intg: True)
+    assert "0_0" in pi.tables["W"] and "0_0" not in pi.tables["W0"]
+    assert not fj.uses_blocked_kernel(pi)
+    why = fj.kernel_route_refusal(pi)
+    if refusal is None:
+        assert why is None
+        assert fj.full_w_refusal(pi) is None
+    else:
+        assert refusal in why
+
+
+class _QuarticDiffusion(pad.ADFunction):
+    """0.5 |g|^2 + 0.25 g_0^4 on 2D GRAD input, with closed entries: an
+    energy the library does not define."""
+
+    def __init__(self):
+        super().__init__(2)
+
+    def energy(self, g, p):
+        return 0.5 * (g[0] * g[0] + g[1] * g[1]) + 0.25 * g[0] ** 4
+
+    def hessian_closed_entries(self, g, p):
+        return [[1.0 + 3.0 * g[0] * g[0], 0.0], [0.0, 1.0]]
+
+
+def test_full_w_route_takes_any_energy_whose_entries_trace(monkeypatch):
+    """A scalar 2D p1 energy with closed entries (n=2, nde=4) takes the
+    full-W instantiation, as the reference's _kernel_tile takes any
+    hess_entries; with the device check stubbed its plain version equals
+    two-stage."""
+    fes = PFESpace(PM.make_cartesian_2d(3, 3), 1)
+    pi = PIntegrator(_QuarticDiffusion(), [fes], [PADEval.GRAD],
+                     device="cpu", dtype=F64)
+    monkeypatch.setattr(fj, "_tables_on_cuda", lambda intg: True)
+    assert fj.kernel_route_refusal(pi) is None
+    assert not fj.uses_blocked_kernel(pi)
+    u = vector_from_numpy(
+        0.3 * np.random.default_rng(2).standard_normal(fes.ndof), "cpu", F64)
+    A = pi.element_jacobians([u], route="kernel").numpy()
+    A_two = pi.element_jacobians([u], route="two_stage").numpy()
+    assert A.shape == (9, 4, 4)
+    np.testing.assert_allclose(A, A_two, rtol=0, atol=_tol(A_two))
+
+
+def test_kernel_route_takes_full_w_kernel_with_tables_taken_for_cuda(
+        monkeypatch):
+    """route="kernel" and auto both reach fused_element_jacobian at 2D p1;
+    with the device check stubbed, CPU tensors get its plain version, which
+    must equal two-stage."""
+    monkeypatch.setattr(fj, "_tables_on_cuda", lambda intg: True)
+    taken = []
+    real = fj.fused_element_jacobian
+    monkeypatch.setattr(fj, "fused_element_jacobian",
+                        lambda *a: taken.append(1) or real(*a))
+    _, pi, u = _pair("elasticity", 3)
+    ut = vector_from_numpy(u, "cpu", F64)
+    A_two = pi.element_jacobians([ut], route="two_stage").numpy()
+    for route in ("kernel", "auto"):
+        A = pi.element_jacobians([ut], route=route).numpy()
+        np.testing.assert_allclose(A, A_two, rtol=0, atol=_tol(A_two))
+    assert taken == [1, 1]
+
+
+@pytest.mark.parametrize("energy", ["neohookean", "elasticity"])
+def test_full_w_is_the_blocked_gemm_at_vdim_1(energy):
+    """The full-W kernel's function is the blocked kernel's at vdim = 1,
+    sd = n, nd = nde, B0 = Bf and W0 = W: the blocked plain version on
+    those operands equals the full-W plain version (f64, the same GEMM up
+    to the summation order)."""
+    _, pi, u = _pair(energy, 3)
+    ue, R, W, wq, params = _plain_inputs(pi, u)
+    n, nde = pi.n_input, ue.shape[1]
+    B0 = R.reshape(pi.nq, n, nde).transpose(1, 2)
+    A = bj.blocked_element_jacobian_plain(pi.f, ue, B0, W, wq, params, 1, n)
+    A_full = fj.fused_element_jacobian_plain(pi.f, ue, R, W, wq, params)
+    np.testing.assert_allclose(A.numpy(), A_full.numpy(), rtol=0,
+                               atol=1e-13 * float(A_full.abs().max()))
+
+
+def test_full_w_kernel_source_instantiates_the_blocked_kernel():
+    """The full-W library is the blocked kernel's template at vdim = 1,
+    sd = n with the traced closed entries; it differs from the blocked
+    instantiation of the same energy."""
+    f = pad.NeoHookeanEnergy(2, 1.0, 1.0)
+    code = bj.entries_code(f, {"lambda": 1, "mu": 1})
+    src = bj.kernel_source(code, 1, 4)
+    for t in ("float", "double"):
+        assert f"bj::launch<{t}, 1, 4, Entries>" in src
+    blocked = bj.kernel_source(code, 2, 2)
+    assert nvcc.library_path("blocked_jacobian", src, bj.HEADERS) != (
+        nvcc.library_path("blocked_jacobian", blocked, bj.HEADERS))
+    with pytest.raises(ValueError, match="not among"):
+        bj.kernel_source(code, 1, 3)
+
+
+def test_full_w_operands_are_built_once_per_table():
+    """B0 = Bf (R read as [nq, n, nde]) and the weighted tile-major factor
+    are built at the first call and reused while the tables stand; a
+    change of the weights builds the factor again."""
+    _, pi, u = _pair("neohookean", 3)
+    ue, R, W, wq, _ = _plain_inputs(pi, u)
+    n, nde, nq = pi.n_input, ue.shape[1], pi.nq
+    plan = bj.launch_plan(1, n, nde, nq, F64)
+    B0, Ww = fj.full_w_operands(R, W, wq, n, plan)
+    Bf = pi.tables["B"][0][0]  # [nq, nd, sd], vdim = 2 blocks
+    nd, sd = pi.nd[0], pi.sd[0]
+    for v in range(2):
+        assert torch.equal(B0[:, v * nd:(v + 1) * nd, v * sd:(v + 1) * sd],
+                           Bf)
+    assert torch.equal(Ww, bj.tiled_factor(W, wq, n, plan))
+    again = fj.full_w_operands(R, W, pi.tables["w"][0].contiguous(), n, plan)
+    assert again[0] is B0 and again[1] is Ww
+    w2 = wq.clone()
+    w2[0] *= 2.0
+    B0b, Ww2 = fj.full_w_operands(R, W, w2, n, plan)
+    assert B0b is B0 and Ww2 is not Ww
+    assert torch.equal(Ww2, bj.tiled_factor(W, w2, n, plan))
 
 
 def test_wrapper_rejects_unsupported_inputs_before_any_launch():
