@@ -54,7 +54,22 @@ main paths through their public entry points:
         cuBLAS's time for the contraction GEMM alone as a yardstick, beside
         the kernel's launch plan; every instantiation's registers and
         spills, and the register-bank conflicts of their main loops
-        (``cuobjdump -sass``).
+        (``cuobjdump -sass``);
+  F. the modules around the kernels:
+     F1 ex2's minimal surface (eps a runtime field parameter) at 512x512
+        p1 (263,169 dofs), f64, Jacobi-CG, 3 continuation passes through
+        ``models.minimal_surface.solve``: Newton and CG iterations, area
+        and wall time per pass; every pass converges, the area decreases;
+     F2 two-stage element Jacobians (``hess_state`` then
+        ``element_matrices``, whose GEMM is against W0) at 3D p1 64^3 and
+        3D p2 32^3, f32, against the blocked kernel's A, with the end-to-
+        end time, its two parts and cuBLAS's bare W0 GEMM;
+     F3 the ex1-ex3 examples' ``main``: ex1's MMS rates at p = 1, 2, 3 over
+        three refinements; ex1, ex2 (30 passes), ex3 2D and ex3 3D p1 with
+        ``--solver dense`` and ``minres`` against ``cg``; the dense
+        Jacobian against the matrix-free action at 3D p2;
+     F4 the bench (``mfem_ad_tpu_torch.bench``): its sweep table and its
+        headline line.
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
@@ -75,7 +90,6 @@ import json
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -84,6 +98,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from mfem_ad_tpu_torch import bench
+from mfem_ad_tpu_torch.bench import call_ms
 from mfem_ad_tpu_torch import mesh as M
 from mfem_ad_tpu_torch.ad import (
     ADFunction,
@@ -96,7 +112,8 @@ from mfem_ad_tpu_torch.adeval import ADEval
 from mfem_ad_tpu_torch.fespace import FESpace
 from mfem_ad_tpu_torch.forms import LinearForm, NonlinearForm
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator
-from mfem_ad_tpu_torch.models import elasticity, poisson
+from mfem_ad_tpu_torch.examples import ex1, ex2, ex3
+from mfem_ad_tpu_torch.models import elasticity, minimal_surface, poisson
 from mfem_ad_tpu_torch.ops import ad_jacobian as adj
 from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
@@ -117,8 +134,8 @@ AMP = 0.1
 # every E shape, and phase E1 asserts it for every neo-Hookean input.
 AMP_BLOCKED = 0.01
 # H100 SXM published peaks (NVIDIA data sheet, at 700 W): f32 and f64
-# arithmetic outside the tensor cores, and HBM3 bandwidth
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+# arithmetic outside the tensor cores (the bench's), and HBM3 bandwidth
+PEAK_FLOPS = bench.PEAK_FLOPS
 PEAK_BYTES = 3.35e12
 
 
@@ -172,22 +189,6 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of per-call CUDA-event timings, in ms, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def seeded(n: int, scale: float, seed: int, dtype, device):
     rng = np.random.default_rng(seed)
     return torch.as_tensor(scale * rng.standard_normal(n), dtype=dtype,
@@ -225,14 +226,6 @@ def phase_a(dev):
                 worst = max(worst, rel)
     torch.cuda.synchronize()
     log(f"phase A ok: worst relative error {worst:.3e}")
-
-
-def headline_integrator(dev):
-    fes = FESpace(M.make_cartesian_2d(HEADLINE_N, HEADLINE_N), 1, vdim=2)
-    intg = ADBlockIntegrator(NeoHookeanEnergy(2, 1.0, 1.0), [fes], [MODE],
-                             device=dev, dtype=torch.float32)
-    u = seeded(fes.ndof, AMP / HEADLINE_N, 0, torch.float32, dev)
-    return intg, u
 
 
 def phase_b_main(intg, u):
@@ -298,10 +291,10 @@ def phase_c_breakdown(form, x):
     state = form.grad_state(x)
     v = seeded(x.numel(), 1.0, 2, x.dtype, x.device)
     ms = {
-        "mult": cuda_ms(lambda: form.mult(x), reps=5),
-        "grad_state": cuda_ms(lambda: form.grad_state(x), reps=5),
-        "grad_diag": cuda_ms(lambda: form.grad_diag(state), reps=5),
-        "grad_mult": cuda_ms(lambda: form.grad_mult(state, v)),
+        "mult": call_ms(lambda: form.mult(x), reps=5),
+        "grad_state": call_ms(lambda: form.grad_state(x), reps=5),
+        "grad_diag": call_ms(lambda: form.grad_diag(state), reps=5),
+        "grad_mult": call_ms(lambda: form.grad_mult(state, v)),
     }
     log("C per call: " + ", ".join(f"{k} {t:.4f} ms" for k, t in ms.items()))
 
@@ -321,13 +314,13 @@ def phase_b_timing(intg, u, A_main):
         raise AssertionError("repeat kernel call differs from the main path")
     del A_k, A_p
     # order: plain, kernel, kernel, plain
-    p1 = cuda_ms(lambda: fj.fused_element_jacobian_plain(intg.f, *args))
-    k1 = cuda_ms(lambda: fj.fused_element_jacobian(intg.f, *args))
-    k2 = cuda_ms(lambda: fj.fused_element_jacobian(intg.f, *args))
-    p2 = cuda_ms(lambda: fj.fused_element_jacobian_plain(intg.f, *args))
+    p1 = call_ms(lambda: fj.fused_element_jacobian_plain(intg.f, *args))
+    k1 = call_ms(lambda: fj.fused_element_jacobian(intg.f, *args))
+    k2 = call_ms(lambda: fj.fused_element_jacobian(intg.f, *args))
+    p2 = call_ms(lambda: fj.fused_element_jacobian_plain(intg.f, *args))
     k_ms, p_ms = min(k1, k2), min(p1, p2)
-    e2e_k = cuda_ms(lambda: intg.element_jacobians([u]))
-    e2e_t = cuda_ms(lambda: intg.element_jacobians([u], route="two_stage"))
+    e2e_k = call_ms(lambda: intg.element_jacobians([u]))
+    e2e_t = call_ms(lambda: intg.element_jacobians([u], route="two_stage"))
     log(f"B kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
         f"({ne} elements)")
     log(f"B element_jacobians_per_sec kernel {ne / (k_ms / 1e3):.6e}, "
@@ -536,7 +529,7 @@ def d2_configs(dev):
         intg = pb.form.integrators[0]
         u = seeded(pb.space.ndof, 1.0, 5, torch.float32, dev)
         out[f"poisson_q{order}"] = (intg, u, "auto")
-    intg, u = headline_integrator(dev)
+    intg, u = bench.build(1, 2, HEADLINE_N, dev)
     out["neohookean_q1_ad"] = (intg, u, "kernel_ad")
     # 2D p2 vector (n=4, nde=18; A is 340 MB in f32): the closed entries
     # would take the blocked-W0 kernel, so the AD route is asked for
@@ -584,7 +577,7 @@ def bound(ne, nq, n, nde, n_params, dtype):
     rate, whichever is longer.  The energy's own derivative arithmetic is
     left out, so this is a lower bound for both kernels."""
     elem = torch.empty((), dtype=dtype).element_size()
-    fma = ne * (nq * n * n * nde * nde + nq * n * nde)
+    fma = ne * bench.full_w_fmas(nq, n, nde)
     ops_ms = 2.0 * fma / PEAK_FLOPS[dtype] * 1e3
     nbytes = elem * (ne * nde + ne * nde * nde + nq * n * nde
                      + nq * n * n * nde * nde + nq + nq * n_params)
@@ -634,7 +627,7 @@ def contraction_gemm_ms(ne, nq, n, nde, dev) -> float:
         ne, nq * n * n)
     W = seeded(nq * n * n * nde * nde, 1.0, 13, torch.float32, dev).reshape(
         nq * n * n, nde * nde)
-    ms = cuda_ms(lambda: H @ W)
+    ms = call_ms(lambda: H @ W)
     del H, W
     return ms
 
@@ -656,11 +649,11 @@ def phase_d3_timing(configs, main):
         if not torch.equal(A_k, main[name]):
             raise AssertionError(f"{name}: repeat call differs from D2")
         del A_k, A_p
-        p1 = cuda_ms(lambda: adj.ad_element_jacobian_plain(intg.f, *args))
-        k1 = cuda_ms(lambda: adj.ad_element_jacobian(intg.f, *args))
-        k2 = cuda_ms(lambda: adj.ad_element_jacobian(intg.f, *args))
-        p2 = cuda_ms(lambda: adj.ad_element_jacobian_plain(intg.f, *args))
-        e2e = {r: cuda_ms(lambda r=r: intg.element_jacobians([u], route=r))
+        p1 = call_ms(lambda: adj.ad_element_jacobian_plain(intg.f, *args))
+        k1 = call_ms(lambda: adj.ad_element_jacobian(intg.f, *args))
+        k2 = call_ms(lambda: adj.ad_element_jacobian(intg.f, *args))
+        p2 = call_ms(lambda: adj.ad_element_jacobian_plain(intg.f, *args))
+        e2e = {r: call_ms(lambda r=r: intg.element_jacobians([u], route=r))
                for r in ("auto", "kernel_ad", "two_stage")}
         b_ms, b_by = bound(ne, intg.nq, intg.n_input,
                            intg.vdim[0] * intg.nd[0],
@@ -892,7 +885,7 @@ def blocked_bound(ne, nq, vdim, sd, nd, n_params, dtype):
     The entries' own arithmetic is left out, so this is a lower bound."""
     elem = torch.empty((), dtype=dtype).element_size()
     nde = vdim * nd
-    fma = ne * (vdim * vdim * nd * nd * nq * sd * sd + nq * vdim * sd * nd)
+    fma = ne * bench.blocked_fmas(nq, vdim, sd, nd)
     ops_ms = 2.0 * fma / PEAK_FLOPS[dtype] * 1e3
     nbytes = elem * (ne * nde + ne * nde * nde + nq * nd * sd
                      + nq * sd * sd * nd * nd + nq + nq * n_params)
@@ -926,13 +919,13 @@ def phase_e3_timing(configs, main):
             raise AssertionError(f"{name}: repeat call differs from E2")
         del A_k, A_p
         reps = 5 if nd < 27 else 3
-        p1 = cuda_ms(plain, reps=reps, warmup=1)
-        k1 = cuda_ms(kernel)
-        k2 = cuda_ms(kernel)
-        p2 = cuda_ms(plain, reps=reps, warmup=1)
-        two = cuda_ms(lambda: intg.element_jacobians([u], route="two_stage"),
+        p1 = call_ms(plain, reps=reps, warmup=1)
+        k1 = call_ms(kernel)
+        k2 = call_ms(kernel)
+        p2 = call_ms(plain, reps=reps, warmup=1)
+        two = call_ms(lambda: intg.element_jacobians([u], route="two_stage"),
                       reps=reps, warmup=1)
-        auto = cuda_ms(lambda: intg.element_jacobians([u]))
+        auto = call_ms(lambda: intg.element_jacobians([u]))
         b_ms, b_by = blocked_bound(ne, nq, vdim, sd, nd,
                                    sum(adj.param_sizes(args[4]).values()),
                                    torch.float32)
@@ -943,7 +936,7 @@ def phase_e3_timing(configs, main):
         Hk = seeded(ne * vdim * vdim * nq * sd * sd, 1.0, 11, torch.float32,
                     u.device).reshape(ne * vdim * vdim, nq * sd * sd)
         Wk = args[2]
-        lib_ms = cuda_ms(lambda: Hk @ Wk)
+        lib_ms = call_ms(lambda: Hk @ Wk)
         del Hk
         log(f"E3 {name}: blocked kernel device {k_ms:.4f} ms "
             f"({ne / (k_ms / 1e3):.6e} elem/s), bound {b_ms:.4f} ms "
@@ -983,13 +976,170 @@ def host_work(calls):
             bj.DERIVED.clear()
             return fn()
 
-        k1, r1, r2, k2 = (cuda_ms(fn), cuda_ms(rebuilt), cuda_ms(rebuilt),
-                          cuda_ms(fn))
+        k1, r1, r2, k2 = (call_ms(fn), call_ms(rebuilt), call_ms(rebuilt),
+                          call_ms(fn))
         kept, rb = min(k1, k2), min(r1, r2)
         log(f"H {name}: events {k1:.4f}/{k2:.4f} ms kept, {r1:.4f}/"
             f"{r2:.4f} ms rebuilt per call; kernel device {dev_ms:.4f} ms; "
             f"host work {kept - dev_ms:.4f} ms kept, {rb - dev_ms:.4f} ms "
             "rebuilt")
+
+
+# ---------------------------------------------------------------------------
+# F: field-backed Newton, the W0 two-stage route, the examples, the bench
+# ---------------------------------------------------------------------------
+
+
+F1_N0, F1_REFS = 64, 3  # 512x512 p1: 263,169 dofs
+
+
+def phase_f1(dev):
+    """Minimal surface (eps a runtime field) at 512x512 p1 (n0 64, 3
+    refinements), f64, Jacobi-CG, 3 continuation passes."""
+    x, hist, pb = minimal_surface.solve(order=1, ref_levels=F1_REFS,
+                                        n0=F1_N0, continuation_steps=3,
+                                        lin_solver="cg", device=dev)
+    ndof = pb.space.ndof
+    if ndof != (F1_N0 * 2 ** F1_REFS + 1) ** 2 or pb.form.integrators[
+            0].field_kinds != {"eps": ("scalar", 1)}:
+        raise AssertionError(f"F1: unexpected problem ({ndof} dofs)")
+    for i, h in enumerate(hist):
+        log(f"F1 pass {i + 1}: eps {h.eps:.4e}, newton iterations "
+            f"{h.iterations}, cg iterations per step {h.lin_iters}, area "
+            f"{h.area:.12f}, converged {h.converged}, wall {h.seconds:.3f} s")
+    if not all(h.converged for h in hist):
+        raise AssertionError("F1: a continuation pass did not converge")
+    areas = [h.area for h in hist]
+    if not all(a > b for a, b in zip(areas, areas[1:])):
+        raise AssertionError(f"F1: the area does not decrease: {areas}")
+    ess = pb.form.ess_mask
+    if not bool(torch.isfinite(x).all()) or not torch.equal(x[ess],
+                                                            pb.x0[ess]):
+        raise AssertionError("F1: solution not finite or boundary moved")
+    log(f"phase F1 ok: {ndof} dofs, wall "
+        f"{sum(h.seconds for h in hist):.3f} s")
+
+
+F2_CASES = {"3d_p1_64": (1, (64, 64, 64)), "3d_p2_32": (2, (32, 32, 32))}
+
+
+def phase_f2(dev):
+    """Two-stage element Jacobians through the W0 GEMM, f32, against the
+    blocked kernel's A (E1's bound), with the end-to-end time and its
+    parts, and cuBLAS's time for the bare W0 GEMM."""
+    for name, (order, dims) in F2_CASES.items():
+        intg, u = vector_integrator(NeoHookeanEnergy, 3, order, dims,
+                                    torch.float32, dev, 16)
+        if "0_0" not in intg.tables["W0"]:
+            raise AssertionError(f"F2 {name}: no W0 installed")
+        A_two = intg.element_matrices(intg.hess_state([u]), 0, 0)
+        A_k = intg.element_jacobians([u], route="kernel")
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(A_two).all()):
+            raise AssertionError(f"F2 {name}: two-stage A not finite")
+        scale = float(A_k.abs().max())
+        rel = float((A_two - A_k).abs().max()) / scale
+        log(f"F2 {name}: |A two-stage (W0 GEMM) - A blocked kernel| = "
+            f"{rel:.3e} max|A| (tol 2e-06)")
+        if not rel <= 2e-6:
+            raise AssertionError(f"F2 {name}: two-stage disagrees")
+        del A_two, A_k
+        ne, nq = intg.tables["edof"][0].shape[0], intg.nq
+        e2e = call_ms(lambda: intg.element_jacobians([u], route="two_stage"),
+                      reps=5, warmup=1)
+        hs = call_ms(lambda: intg.hess_state([u]), reps=5, warmup=1)
+        Hq = intg.hess_state([u])
+        em = call_ms(lambda: intg.element_matrices(Hq, 0, 0), reps=5,
+                     warmup=1)
+        W0 = intg.tables["W0"]["0_0"]
+        Hp = Hq.reshape(ne, nq, 3, 3, 3, 3).permute(0, 2, 4, 1, 3, 5).reshape(
+            ne * 9, nq * 9)
+        lib = call_ms(lambda: Hp @ W0)
+        del Hq, Hp
+        log(f"F2 {name} ({ne} elements): two-stage end to end {e2e:.4f} ms "
+            f"({ne / (e2e / 1e3):.6e} elem/s): hess_state {hs:.4f} ms, "
+            f"element_matrices (W0 GEMM) {em:.4f} ms; library_ms (cuBLAS "
+            f"bare [ne vdim^2, nq sd^2] @ W0) {lib:.4f} ms")
+        del intg, u
+        torch.cuda.empty_cache()
+    log("phase F2 ok")
+
+
+def rel_l2(a, b) -> float:
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def phase_f3(dev):
+    """The ex1-ex3 examples: ex1's MMS rates, every example with dense and
+    minres against cg, and the dense Jacobian against the matrix-free
+    action at 3D p2."""
+    dv = ["--device", str(dev)]
+    for p in (1, 2, 3):
+        errs = [ex1.main(["-o", str(p), "-r", str(r)] + dv)[1]
+                for r in (1, 2, 3)]
+        rates = [float(np.log2(a / b)) for a, b in zip(errs, errs[1:])]
+        log(f"F3 ex1 p={p}: L2 errors {errs}, rates {rates}")
+        if not all(abs(r - (p + 1)) <= 0.1 for r in rates):
+            raise AssertionError(f"F3 ex1 p={p}: rates {rates}")
+    runs = {
+        "ex1": (lambda s: ex1.main(["--solver", s] + dv)[0],
+                lambda r: (r.x, r.converged)),
+        "ex2": (lambda s: ex2.main(["--solver", s] + dv),
+                lambda r: (r[0], all(h.converged for h in r[1]))),
+        "ex3 2D": (lambda s: ex3.main(["--solver", s] + dv)[0],
+                   lambda r: (r.x, r.converged)),
+        "ex3 3D p1 ref 0": (
+            lambda s: ex3.main(["-d", "3", "-r", "0", "--solver", s] + dv)[0],
+            lambda r: (r.x, r.converged)),
+    }
+    for name, (run, read) in runs.items():
+        xs = {}
+        for solver in ("cg", "dense", "minres"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, ok = read(run(solver))
+            torch.cuda.synchronize()
+            log(f"F3 {name} --solver {solver}: converged {ok}, wall "
+                f"{time.perf_counter() - t0:.3f} s")
+            if not ok or not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"F3 {name} {solver}: not converged")
+            xs[solver] = x
+        for solver in ("dense", "minres"):
+            rel = rel_l2(xs[solver], xs["cg"])
+            log(f"F3 {name}: |x {solver} - x cg| = {rel:.3e} |x cg|")
+            if not rel <= 1e-8:
+                raise AssertionError(f"F3 {name}: {solver} disagrees")
+    pb = elasticity.build(order=2, ref_levels=0, n0=2, dim=3, device=dev)
+    u = seeded(pb.space.ndof, 0.01, 17, torch.float64, dev)
+    state = pb.form.grad_state(u)
+    A = pb.form.assemble_dense(state)
+    worst = 0.0
+    for seed in range(4):
+        v = seeded(pb.space.ndof, 1.0, 18 + seed, torch.float64, dev)
+        ref = pb.form.grad_mult(state, v)
+        worst = max(worst, float((A @ v - ref).abs().max() / ref.abs().max()))
+    log(f"F3 assemble_dense 3D p2 2^3 ({pb.space.ndof} dofs): |A v - "
+        f"grad_mult v| = {worst:.3e} max|grad_mult v| (tol 1e-12)")
+    if not worst <= 1e-12:
+        raise AssertionError("F3: assemble_dense disagrees with grad_mult")
+    log("phase F3 ok")
+
+
+def phase_f4(dev):
+    """The bench: its sweep rows and its headline line."""
+    log("F4 " + bench.HEADER.replace("\n", "\nF4 "))
+    for order, dim, n in bench.SWEEP:
+        row = bench.sweep_row(order, dim, n, device=dev)
+        log("F4 " + bench.format_row(row))
+        if row["ad_refusal"] is not None:
+            log(f"F4   AD route at p={order} {dim}D: {row['ad_refusal']}")
+        torch.cuda.empty_cache()
+    line = bench.headline(device=dev)
+    log(f"F4 bench line: {json.dumps(line)}")
+    if not line["value"] > 0:
+        raise AssertionError("F4: no bench rate")
+    log("phase F4 ok")
 
 
 def main() -> int:
@@ -1014,7 +1164,7 @@ def main() -> int:
 
     phase_a(dev)
 
-    intg, u = headline_integrator(dev)
+    intg, u = bench.build(1, 2, HEADLINE_N, dev)
     form, fes, b = neohookean_ex3(dev)
     fj.fused_element_jacobian.launches = 0
     A_main, asym = phase_b_main(intg, u)
@@ -1123,6 +1273,11 @@ def main() -> int:
     del e_main, e_configs
     log("phase E3 ok")
     blk = e_rows["neohookean_3d_p1"]
+
+    for phase in (phase_f1, phase_f2, phase_f3, phase_f4):
+        t0 = time.perf_counter()
+        phase(dev)
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "fused_element_jacobian",

@@ -27,9 +27,9 @@ def _leaf(a, device, dtype):
 def tables_from_numpy(tables: dict, device, dtype: torch.dtype) -> dict:
     out = {}
     for key, val in tables.items():
-        if key == "field":
-            if val:
-                raise NotImplementedError("runtime field tables are not ported")
+        if key == "field":  # name -> (edof, phi); the port keeps phi
+            out[key] = {k: _leaf(pair[1], device, dtype)
+                        for k, pair in val.items()}
             continue
         if key in _UNPORTED:
             continue

@@ -4,12 +4,17 @@ PyTorch counterpart of ``mfem_ad_tpu.forms``.  A form owns integrators
 and an essential-dof mask and exposes functions of the (concatenated,
 true-dof) state vector:
 
-- ``mult(u)``            residual, zeroed at essential dofs
-- ``energy(u)``          total energy
-- ``grad_state(u)``      per-integrator per-qp Hessians (Newton state)
-- ``grad_mult(state, v)`` matrix-free Jacobian action, with eliminated
-                         rows/columns and identity on essential dofs
-- ``grad_diag(state)``   Jacobian diagonal (Jacobi preconditioning)
+- ``mult(u, fields)``       residual, zeroed at essential dofs
+- ``energy(u, fields)``     total energy
+- ``grad_state(u, fields)`` per-integrator per-qp Hessians (Newton state)
+- ``grad_mult(state, v)``   matrix-free Jacobian action, with eliminated
+                            rows/columns and identity on essential dofs
+- ``grad_diag(state)``      Jacobian diagonal (Jacobi preconditioning)
+- ``assemble_dense(state)`` dense global Jacobian with the same
+                            elimination (small problems, the direct solver)
+
+``fields`` maps the names of the integrators' runtime field parameters
+(``GridFunctionCoefficient``, ``ScalarFieldCoefficient``) to their values.
 
 Block systems use MFEM-style true-dof offsets: ``u = cat(u_block0, ...)``.
 """
@@ -59,6 +64,17 @@ class BlockNonlinearForm:
             )
         self.ess_mask = torch.as_tensor(mask, device=self.device)
 
+    def set_essential_dofs(self, dofs_or_mask, space: int = 0):
+        """Mark essential dofs: a boolean mask over all dofs replaces the
+        current one; dof indices of block ``space`` are added to it."""
+        arr = np.asarray(dofs_or_mask)
+        mask = self.ess_mask.cpu().numpy().copy()
+        if arr.dtype == bool and arr.size == self.ndof:
+            mask = arr.copy()
+        else:
+            mask[self.offsets[space] + arr.astype(np.int64)] = True
+        self.ess_mask = torch.as_tensor(mask, device=self.device)
+
     def split(self, u):
         return [
             u[self.offsets[s]:self.offsets[s + 1]]
@@ -66,23 +82,24 @@ class BlockNonlinearForm:
         ]
 
     # ------------------------------------------------------------------
-    def energy(self, u):
-        return sum(intg.energy(self.split(u)) for intg in self.integrators)
+    def energy(self, u, fields=None):
+        return sum(intg.energy(self.split(u), fields)
+                   for intg in self.integrators)
 
-    def mult(self, u):
+    def mult(self, u, fields=None):
         """Residual with essential rows zeroed (NonlinearForm::Mult)."""
         blocks = self.split(u)
         acc = torch.zeros(self.ndof, dtype=u.dtype, device=u.device)
         for intg in self.integrators:
-            acc = acc + torch.cat(intg.residual(blocks))
+            acc = acc + torch.cat(intg.residual(blocks, fields))
         return torch.where(self.ess_mask, 0.0, acc)
 
-    def grad_state(self, u):
+    def grad_state(self, u, fields=None):
         """Newton states, packed symmetric-compact (``SymHess``; the full
         nonsymmetric dF/dx for a vector integrand): written once per
         direction, read by every Krylov matvec."""
         return [
-            intg.hess_state(self.split(u), sym=True)
+            intg.hess_state(self.split(u), fields, sym=True)
             for intg in self.integrators
         ]
 
@@ -99,6 +116,24 @@ class BlockNonlinearForm:
         for intg, Hq in zip(self.integrators, state):
             acc = acc + torch.cat(intg.diagonal(Hq))
         return torch.where(self.ess_mask, 1.0, acc)
+
+    def assemble_dense(self, state):
+        """Dense global Jacobian [ndof, ndof] on the form's device, with
+        essential rows and columns eliminated and 1 on their diagonal."""
+        A = torch.zeros((self.ndof, self.ndof), dtype=self.dtype,
+                        device=self.device)
+        nb = len(self.spaces)
+        off = self.offsets
+        for intg, Hq in zip(self.integrators, state):
+            for s in range(nb):
+                for t in range(nb):
+                    A[off[s]:off[s + 1], off[t]:off[t + 1]] += (
+                        intg.assemble_dense_block(Hq, s, t))
+        ess = self.ess_mask
+        A[ess, :] = 0.0
+        A[:, ess] = 0.0
+        A[ess, ess] = 1.0
+        return A
 
 
 class NonlinearForm(BlockNonlinearForm):

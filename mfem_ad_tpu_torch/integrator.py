@@ -191,7 +191,9 @@ class ADBlockIntegrator(nn.Module):
            width equals the input width (a pointwise flux: the residual is
            scatter(B F(B^T u) w) and the Newton state is the generally
            nonsymmetric Jacobian dF/dx); its ``params`` coefficients are
-           tabulated here (static parameters only).
+           tabulated here, except the runtime fields
+           (``GridFunctionCoefficient``, ``ScalarFieldCoefficient``), whose
+           values every call takes from ``fields``.
         spaces: list of FESpace, one per block.
         modes: list of ADEval, one per space.
         ir_order: quadrature order (default 2*max(p)+2).
@@ -208,6 +210,8 @@ class ADBlockIntegrator(nn.Module):
         w:      [1, nq]
         edof:   tuple of [ne, nd_s] int64
         static: dict name -> [1, nq, k]
+        field:  dict name -> phi [nq, nd_f] of each grid-function field
+                (its dofs are gathered on its own space's grid map)
         R, R0, D0: tuples of GEMM factors for x = B^T u, r = B g, diagonals
         W, W0:  dicts "s_t" -> element-matrix contraction factors
     """
@@ -246,13 +250,6 @@ class ADBlockIntegrator(nn.Module):
                 "only structured quad/hex meshes are ported (the geometry "
                 "pullback for unstructured meshes is not)"
             )
-        for name, coeff in f.params.items():
-            if isinstance(coeff, (GridFunctionCoefficient,
-                                  ScalarFieldCoefficient)):
-                raise NotImplementedError(
-                    f"runtime field parameter {name!r}: only static "
-                    "parameters are ported"
-                )
         if ir_order is None:
             ir_order = default_ad_order(max(s.order for s in spaces))
         self.ir = get_rule(mesh.geom, ir_order)
@@ -284,6 +281,25 @@ class ADBlockIntegrator(nn.Module):
             raise NotImplementedError(
                 "only lexicographic structured H1 and L2 spaces are ported"
             )
+        # runtime field parameters: name -> ("gf", vdim, ndof_scalar, nd,
+        # gridmeta) or ("scalar", size); values come from ``fields``
+        self.field_kinds: dict[str, tuple] = {}
+        for name, coeff in f.params.items():
+            if isinstance(coeff, GridFunctionCoefficient):
+                sp = coeff.space
+                if sp.mesh is not mesh:
+                    raise ValueError(
+                        f"field {name!r} lives on a different mesh")
+                meta = _space_gridmeta(sp)
+                if meta is None:
+                    raise NotImplementedError(
+                        f"field {name!r}: only lexicographic structured H1 "
+                        "and L2 spaces are ported"
+                    )
+                self.field_kinds[name] = (
+                    "gf", sp.vdim, sp.ndof_scalar, sp.nd, meta)
+            elif isinstance(coeff, ScalarFieldCoefficient):
+                self.field_kinds[name] = ("scalar", coeff.size)
         if tables is None:
             tables = self._tabulate(device)
         self._install(tables)
@@ -302,10 +318,15 @@ class ADBlockIntegrator(nn.Module):
             _dedup_elements(np.asarray(build_B(s, m, self.ir, gf)))
             for s, m in zip(spaces, modes)
         ]
-        static = {}
+        static, field = {}, {}
         ctx = QPContext(gf.xq, ir=self.ir, mesh=mesh)
         for name, coeff in self.f.params.items():
-            static[name] = dev(_dedup_elements(np.asarray(coeff.eval_qp(ctx))))
+            kind = self.field_kinds.get(name)
+            if kind is None:
+                static[name] = dev(
+                    _dedup_elements(np.asarray(coeff.eval_qp(ctx))))
+            elif kind[0] == "gf":
+                field[name] = dev(coeff.space.elem.eval(self.ir.points))
         t = {
             "B": tuple(dev(b) for b in B_np),
             "w": dev(_dedup_elements(np.asarray(gf.w))),
@@ -315,6 +336,7 @@ class ADBlockIntegrator(nn.Module):
                 for s in spaces
             ),
             "static": static,
+            "field": field,
         }
         # GEMM forms of the contractions against the element-shared B:
         #   R_s  [nq*w_s, nde_s]       R[(q,a), i] = Bf[q, i, a]
@@ -417,9 +439,33 @@ class ADBlockIntegrator(nn.Module):
         return out
 
     # ------------------------------------------------------------------
-    def eval_params(self) -> dict:
-        """Static per-qp parameter values, name -> [1, nq, k]."""
-        return dict(self.tables["static"])
+    def eval_params(self, fields=None) -> dict:
+        """Per-qp parameter values, name -> [1 or ne, nq, k]: the static
+        tables, a grid-function field gathered on its own space and
+        interpolated at the points, a scalar field broadcast (a view, no
+        copy).  Raises ``KeyError`` naming a field missing from
+        ``fields``."""
+        t = self.tables
+        fields = fields or {}
+        p = dict(t["static"])
+        w = t["w"]
+        for name, kind in self.field_kinds.items():
+            if name not in fields:
+                raise KeyError(
+                    f"assembly requires field {name!r}; got {list(fields)}"
+                )
+            if kind[0] == "gf":
+                _, vdim, _, nd_f, meta = kind
+                phi = t["field"][name]
+                u = torch.as_tensor(fields[name], dtype=w.dtype,
+                                    device=w.device)
+                ue = _fast_gather(u, meta, vdim, nd_f)  # [ne, nd, vdim]
+                p[name] = torch.einsum("qd,edv->eqv", phi, ue)
+            else:
+                v = torch.as_tensor(fields[name], dtype=w.dtype,
+                                    device=w.device).reshape(-1)
+                p[name] = v.reshape(1, 1, -1).expand(1, self.nq, kind[1])
+        return p
 
     def gather(self, s: int, u):
         """Element dofs of block s: [ne, nd, vdim] (byNODES layout)."""
@@ -464,14 +510,14 @@ class ADBlockIntegrator(nn.Module):
         return re.reshape(ne, self.vdim[s], self.nd[s]).permute(0, 2, 1)
 
     # ------------------------------------------------------------------
-    def energy(self, ublocks):
+    def energy(self, ublocks, fields=None):
         if self.vector_fn:
             raise ValueError("vector integrands have no scalar energy")
         x = self.x_qp(ublocks)
-        vals = qpmap(self.f.energy, x, self.eval_params())
+        vals = qpmap(self.f.energy, x, self.eval_params(fields))
         return torch.sum(vals * self.tables["w"])
 
-    def residual(self, ublocks):
+    def residual(self, ublocks, fields=None):
         """Per-block residual vectors r_s = scatter(B_s (grad f) w); for a
         vector integrand, grad f is F itself."""
         x = self.x_qp(ublocks)
@@ -481,20 +527,20 @@ class ADBlockIntegrator(nn.Module):
             pt = self.f.gradient_closed
         else:
             pt = grad(self.f.energy)
-        g = qpmap(pt, x, self.eval_params()) * self.tables["w"][..., None]
+        g = qpmap(pt, x, self.eval_params(fields)) * self.tables["w"][..., None]
         return [
             self.scatter(s, self._re_from_g(g, s))
             for s in range(len(self.spaces))
         ]
 
-    def hess_state(self, ublocks, sym: bool = False):
+    def hess_state(self, ublocks, fields=None, sym: bool = False):
         """Per-qp weighted Hessian, the Newton state: the full
         [ne, nq, n, n] tensor, or with ``sym=True`` the packed ``SymHess``
         upper-triangle planes [n(n+1)/2, ne, nq].  For a vector integrand
         it is the Jacobian dF/dx, nonsymmetric in general, so it is never
         packed: ``sym`` is ignored and the full tensor returned."""
         x = self.x_qp(ublocks)
-        p = self.eval_params()
+        p = self.eval_params(fields)
         w = self.tables["w"]
         if self.vector_fn:
             H = qpmap(jacfwd(self.f.function), x, p).to(x.dtype)
@@ -556,7 +602,20 @@ class ADBlockIntegrator(nn.Module):
             out.append(self.scatter(s, D))
         return out
 
-    def element_jacobians(self, ublocks, route: str = "auto"):
+    def auto_route(self, fields=None) -> str:
+        """The route ``element_jacobians(route="auto")`` takes."""
+        from .ops.ad_jacobian import ad_kernel_route_refusal
+        from .ops.fused_jacobian import kernel_route_refusal
+
+        if fields:
+            return "two_stage"
+        if kernel_route_refusal(self) is None:
+            return "kernel"
+        if ad_kernel_route_refusal(self) is None:
+            return "kernel_ad"
+        return "two_stage"
+
+    def element_jacobians(self, ublocks, fields=None, route: str = "auto"):
         """Dense element Jacobians A_e [ne, nde, nde] of the (0, 0) block.
 
         ``route``:
@@ -572,42 +631,49 @@ class ADBlockIntegrator(nn.Module):
                        not apply (see ``ad_kernel_route_refusal``);
           "two_stage"  ``hess_state`` then ``element_matrices``;
           "auto"       the first that applies of "kernel", "kernel_ad"
-                       and "two_stage".
-        Vector integrands take two-stage: both kernel routes refuse them.
+                       and "two_stage"; two-stage whenever ``fields`` are
+                       given, as in the JAX package.
+        Vector integrands and field-backed integrators take two-stage:
+        both kernel routes refuse them.
         """
         from .ops import ad_jacobian as adj
-        from .ops.fused_jacobian import (
-            element_jacobian_via_kernel,
-            kernel_route_refusal,
-        )
+        from .ops.fused_jacobian import element_jacobian_via_kernel
 
         if route not in ROUTES:
             raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
         if route == "auto":
-            route = "two_stage"
-            if kernel_route_refusal(self) is None:
-                route = "kernel"
-            elif adj.ad_kernel_route_refusal(self) is None:
-                route = "kernel_ad"
+            route = self.auto_route(fields)
         if route == "kernel":
             return element_jacobian_via_kernel(self, ublocks)
         if route == "kernel_ad":
             return adj.element_jacobian_via_ad_kernel(self, ublocks)
-        return self.element_matrices(self.hess_state(ublocks), 0, 0)
+        return self.element_matrices(self.hess_state(ublocks, fields), 0, 0)
 
     def element_matrices(self, Hq, s: int, t_: int):
         """Dense element blocks A_e[(v,d),(w,k)] for pair (test s, trial
-        t_), byNODES flat layout (v*nd + d): one GEMM against the full W
-        factor where it is installed, else the per-qp B H B^T einsum."""
+        t_), byNODES flat layout (v*nd + d).  The first installed factor
+        serves: one GEMM against the blocked W0 (the vdim axes become GEMM
+        rows), else one against the full W, else the per-qp B H B^T
+        einsum.  The GEMMs are plain ``torch.matmul`` in the tables' type
+        (no TF32)."""
         t = self.tables
         if isinstance(Hq, SymHess):
             Hq = Hq.full()
         ne, nq = Hq.shape[0], Hq.shape[1]
         os_, ot = int(self.x_off[s]), int(self.x_off[t_])
-        nde_s = self.vdim[s] * self.nd[s]
-        nde_t = self.vdim[t_] * self.nd[t_]
+        vs, vt = self.vdim[s], self.vdim[t_]
+        nds, ndt = self.nd[s], self.nd[t_]
+        nde_s, nde_t = vs * nds, vt * ndt
         blk = Hq[..., os_:os_ + self.widths[s], ot:ot + self.widths[t_]]
         key = f"{s}_{t_}"
+        if key in t["W0"]:
+            sds, sdt = self.sd[s], self.sd[t_]
+            H6 = blk.reshape(ne, nq, vs, sds, vt, sdt)
+            Hp = H6.permute(0, 2, 4, 1, 3, 5).reshape(
+                ne * vs * vt, nq * sds * sdt)
+            A = (Hp @ t["W0"][key]).reshape(ne, vs, vt, nds, ndt)
+            # byNODES flat layout: row (v, i) -> v*nd_s + i
+            return A.permute(0, 1, 3, 2, 4).reshape(ne, nde_s, nde_t)
         if key in t["W"]:
             A = blk.reshape(ne, -1) @ t["W"][key]
             return A.reshape(ne, nde_s, nde_t)
@@ -616,3 +682,23 @@ class ADBlockIntegrator(nn.Module):
         )
         A = _elmat_from_h(t["B"][s][0], t["B"][t_][0], H6)
         return A.reshape(ne, nde_s, nde_t)
+
+    def assemble_dense_block(self, Hq, s: int, t_: int):
+        """Assembled dense [N_s, N_t] block (small problems, the direct
+        solver), accumulated on the tables' device."""
+        Ae = self.element_matrices(Hq, s, t_)
+        ne = Ae.shape[0]
+        idx = []
+        for b in (s, t_):
+            sp = self.spaces[b]
+            edof = self.tables["edof"][b]  # [ne, nd]
+            comp = torch.arange(sp.vdim, device=edof.device) * sp.ndof_scalar
+            # byNODES element layout: flat (v, d) = v*nd + d
+            idx.append((edof[:, None, :] + comp[None, :, None])
+                       .reshape(ne, -1))
+        gi, gj = idx
+        A = torch.zeros((self.spaces[s].ndof, self.spaces[t_].ndof),
+                        dtype=Ae.dtype, device=Ae.device)
+        A.index_put_((gi[:, :, None].expand_as(Ae),
+                      gj[:, None, :].expand_as(Ae)), Ae, accumulate=True)
+        return A

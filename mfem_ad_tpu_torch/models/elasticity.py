@@ -53,12 +53,13 @@ def build(
     return Problem(mesh=m, space=fes, form=nlf, rhs=rhs)
 
 
-def solve(order: int = 1, ref_levels: int = 3, dim: int = 2, *, device="cuda",
-          dtype: torch.dtype = torch.float64):
+def solve(order: int = 1, ref_levels: int = 3, lin_solver: str = "cg",
+          dim: int = 2, *, device="cuda", dtype: torch.dtype = torch.float64):
     pb = build(order, ref_levels, dim=dim, device=device, dtype=dtype)
     opts = NewtonOptions(
-        abs_tol=1e-10, max_iter=3, lin_solver="cg", lin_tol=1e-14,
-        lin_maxiter=20000, preconditioner="jacobi",
+        abs_tol=1e-10, max_iter=3, lin_solver=lin_solver, lin_tol=1e-14,
+        lin_maxiter=20000,
+        preconditioner="jacobi" if lin_solver == "cg" else None,
     )
     x0 = torch.zeros(pb.space.ndof, dtype=dtype, device=pb.form.device)
     res = newton(pb.form, x0, b=pb.rhs, opts=opts)

@@ -49,12 +49,12 @@ def build(order: int = 1, ref_levels: int = 1, n0: int = 10, *, device="cuda",
     return Problem(mesh=m, space=fes, form=nlf, rhs=rhs)
 
 
-def solve(order: int = 1, ref_levels: int = 1, n0: int = 10, *, device="cuda",
-          dtype: torch.dtype = torch.float64):
+def solve(order: int = 1, ref_levels: int = 1, lin_solver: str = "cg",
+          n0: int = 10, *, device="cuda", dtype: torch.dtype = torch.float64):
     pb = build(order, ref_levels, n0, device=device, dtype=dtype)
     opts = NewtonOptions(
-        abs_tol=1e-10, max_iter=3, lin_solver="cg", lin_tol=1e-14,
-        preconditioner="jacobi",
+        abs_tol=1e-10, max_iter=3, lin_solver=lin_solver, lin_tol=1e-14,
+        preconditioner="jacobi" if lin_solver == "cg" else None,
     )
     x0 = torch.zeros(pb.space.ndof, dtype=dtype, device=pb.form.device)
     res = newton(pb.form, x0, b=pb.rhs, opts=opts)

@@ -43,6 +43,7 @@ from .energy_codegen import (
 )
 from .fused_jacobian import (
     check_full_w_operands,
+    field_refusal,
     full_w_operands,
     full_w_refusal,
     kernel_inputs,
@@ -165,6 +166,8 @@ def ad_kernel_route_refusal(intg) -> str | None:
     if intg.vector_fn:
         return ("vector integrands (ADVectorFunction) have no scalar "
                 "energy to differentiate")
+    if intg.field_kinds:
+        return field_refusal(intg)
     if not _tables_on_cuda(intg):
         return "the AD kernel runs on CUDA tables only"
     if not supports_fused(intg):

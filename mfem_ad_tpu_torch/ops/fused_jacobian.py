@@ -79,6 +79,14 @@ def full_w_refusal(intg) -> str | None:
     return None
 
 
+def field_refusal(intg) -> str:
+    """The refusal of both kernel routes for a field-backed integrator:
+    the kernels take element-shared static parameters only, as the JAX
+    package's kernel does."""
+    return (f"runtime field parameters ({', '.join(intg.field_kinds)}) are "
+            "not kernel inputs: field-backed integrators take two-stage")
+
+
 def kernel_route_refusal(intg) -> str | None:
     """Why the closed-entries kernel the tables select (blocked-W0 where
     ``uses_blocked_kernel``, else full-W) cannot assemble this integrator's
@@ -87,6 +95,8 @@ def kernel_route_refusal(intg) -> str | None:
     if intg.vector_fn:
         return ("vector integrands (ADVectorFunction) have no closed "
                 "Hessian entries: the state is the Jacobian of F")
+    if intg.field_kinds:
+        return field_refusal(intg)
     if not _tables_on_cuda(intg):
         return "the kernel runs on CUDA tables only"
     if intg.f.hessian_closed_entries is None:

@@ -1,10 +1,11 @@
-"""Matrix-free preconditioned CG and GMRES, and an MFEM-NewtonSolver-style
-Newton.
+"""Matrix-free preconditioned CG, GMRES and MINRES, and an
+MFEM-NewtonSolver-style Newton.
 
 PyTorch counterpart of ``mfem_ad_tpu.solvers`` (``cg``, ``gmres``,
-``newton`` with ``lin_solver="cg"`` or ``"gmres"``).  ``newton`` solves
-``form.mult(x) = b``: it solves J c = r with r = mult(x) - b, updates
-x <- x - c, and converges on ||r|| <= max(rel_tol*||r0||, abs_tol).
+``minres``, ``newton`` with ``lin_solver`` "cg", "gmres", "minres",
+"dense" or a callable).  ``newton`` solves ``form.mult(x, fields) = b``:
+it solves J c = r with r = mult(x) - b, updates x <- x - d c, and
+converges on ||r|| <= max(rel_tol*||r0||, abs_tol).
 """
 
 from __future__ import annotations
@@ -15,10 +16,9 @@ import numpy as np
 import torch
 
 
-# CG reads its stopping test back to the host every this many iterations
+# CG and MINRES read their stopping test back to the host every this many
+# iterations
 _CHECK_EVERY = 16
-# consecutive <5% residual reductions after which Newton counts as floored
-_STALL_ITERS = 2
 
 
 def _safe_div(num, den):
@@ -173,6 +173,81 @@ def gmres(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
     return x * bscale, total
 
 
+def minres(matvec, b, x0=None, M=None, tol=1e-10, maxiter=1000,
+           stall_window=200):
+    """Preconditioned MINRES (Paige-Saunders) for symmetric, possibly
+    indefinite systems; ``M`` must be SPD.  Stops when the residual
+    estimate phibar <= tol*||b||, after ``maxiter`` iterations, or at the
+    floor exit: every ``stall_window`` iterations phibar (monotone in
+    MINRES) must have dropped by at least 1% (``None`` disables it).
+
+    The loop state stays on the device and is updated only while the
+    stopping test holds, as in ``cg``; the host reads the test back every
+    ``_CHECK_EVERY`` iterations.
+
+    Returns (x, iterations).
+    """
+    dt, dev = b.dtype, b.device
+    if M is None:
+        M = lambda v: v  # noqa: E731
+    x = torch.zeros_like(b) if x0 is None else x0
+    tiny = torch.finfo(dt).tiny
+    target = tol * torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
+    window = maxiter + 1 if stall_window is None else min(stall_window, maxiter)
+
+    def scalar(v):
+        return torch.full((), v, dtype=dt, device=dev)
+
+    r1 = b - matvec(x)
+    y = M(r1)
+    beta = torch.sqrt(torch.abs(torch.dot(r1, y)))
+    r2 = r1
+    oldb, dbar, epsln = scalar(0.0), scalar(0.0), scalar(0.0)
+    phibar, cs, sn = beta, scalar(-1.0), scalar(0.0)
+    w = torch.zeros_like(b)
+    w2 = torch.zeros_like(b)
+    mark = beta
+    stall = torch.zeros((), dtype=torch.bool, device=dev)
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(maxiter):
+        active = (phibar > target) & ~stall
+        if i % _CHECK_EVERY == 0 and not bool(active):
+            break
+        bsafe = torch.where(beta == 0, 1.0, beta)
+        v = y / bsafe
+        yv = matvec(v)
+        if i > 0:
+            yv = yv - (beta / torch.where(oldb == 0, 1.0, oldb)) * r1
+        alfa = torch.dot(v, yv)
+        yv = yv - (alfa / bsafe) * r2
+        yn = M(yv)
+        beta_n = torch.sqrt(torch.abs(torch.dot(yv, yn)))
+        delta = cs * dbar + sn * alfa
+        gbar = sn * dbar - cs * alfa
+        gamma = torch.sqrt(gbar * gbar + beta_n * beta_n)
+        gamma = torch.where(gamma == 0, tiny, gamma)
+        cs_n = gbar / gamma
+        sn_n = beta_n / gamma
+        phibar_n = sn_n * phibar
+        wn = (v - epsln * w2 - delta * w) / gamma
+
+        def keep(new, old):
+            return torch.where(active, new, old)
+
+        if (i + 1) % window == 0:
+            stall = keep(phibar_n > mark * (1.0 - 1e-2), stall)
+            mark = keep(phibar_n, mark)
+        # one MINRES step where active, else the state unchanged
+        x, r1, r2, y, w, w2 = (keep(x + (cs_n * phibar) * wn, x),
+                               keep(r2, r1), keep(yv, r2), keep(yn, y),
+                               keep(wn, w), keep(w, w2))
+        oldb, beta = keep(beta, oldb), keep(beta_n, beta)
+        dbar, epsln = keep(-cs * beta_n, dbar), keep(sn * beta_n, epsln)
+        phibar, cs, sn = keep(phibar_n, phibar), keep(cs_n, cs), keep(sn_n, sn)
+        k = k + active.to(torch.int64)
+    return x, int(k)
+
+
 # ---------------------------------------------------------------------------
 # Newton
 # ---------------------------------------------------------------------------
@@ -183,13 +258,19 @@ class NewtonOptions:
     abs_tol: float = 1e-12
     rel_tol: float = 0.0
     max_iter: int = 100
-    lin_solver: str = "cg"  # "cg" or "gmres"
+    damping: float = 1.0  # MFEM's c scaling factor of the step
+    # "cg" | "gmres" | "minres" | "dense" | callable(form, state, r) -> c
+    lin_solver: object = "cg"
     lin_tol: float = 1e-12
     lin_maxiter: int = 2000
-    # cg's floor exit: iterations per required 1% drop of the best
-    # residual; None runs CG to lin_tol or lin_maxiter
+    # cg's and minres's floor exit: iterations per required 1% drop of
+    # the monitored residual; None runs them to lin_tol or lin_maxiter
     lin_stall_window: int | None = 200
-    preconditioner: object = None  # None | "jacobi"
+    preconditioner: object = None  # None | "jacobi" | callable(form, state)
+    verbose: bool = False
+    # consecutive <5% residual reductions after which Newton counts as
+    # floored and stops unconverged; None disables the exit
+    stall_iters: int | None = 2
 
 
 @dataclass
@@ -202,39 +283,68 @@ class NewtonResult:
     lin_iters: list = field(default_factory=list)  # Krylov its per step
 
 
-def _residual_norm(form, x, b) -> float:
-    r = torch.where(form.ess_mask, 0.0, form.mult(x) - b)
-    return float(torch.linalg.vector_norm(r))
+_KRYLOV = ("cg", "gmres", "minres")
 
 
-def _direction(form, x, b, opts: NewtonOptions):
-    """Newton direction c of J c = r (residual, Jacobian state, Krylov
-    solve); returns (c, Krylov iterations)."""
-    r = torch.where(form.ess_mask, 0.0, form.mult(x) - b)
-    state = form.grad_state(x)
-    M = None
-    if opts.preconditioner == "jacobi":
-        # |diag| keeps the preconditioner SPD on indefinite systems
+def _residual(form, x, b, fields):
+    return torch.where(form.ess_mask, 0.0, form.mult(x, fields) - b)
+
+
+def _make_precond(form, state, spec):
+    if spec is None:
+        return None
+    if spec == "jacobi":
+        # |diag| keeps the preconditioner SPD on indefinite systems, so
+        # it serves MINRES as well as CG
         d = torch.abs(form.grad_diag(state))
         safe = torch.where(d < 1e-30, 1.0, d)
-        M = lambda v: v / safe  # noqa: E731
+        return lambda v: v / safe
+    return spec(form, state)
+
+
+def dense_solve(A, r):
+    """c = A^-1 r by LU (``solve_ex``, whose ``info`` is read instead of
+    raising); where the LU is singular or its solution is not finite or
+    more than 1e12 x max|r|, the minimum-norm least-squares solution with
+    singular values below 1e-10 x the largest cut (the reference's
+    ``lstsq(rcond=1e-10)``)."""
+    c, info = torch.linalg.solve_ex(A, r)
+    tiny = torch.finfo(r.dtype).tiny
+    bad = ((info != 0) | ~torch.isfinite(c).all()
+           | (c.abs().max() > 1e12 * (r.abs().max() + tiny)))
+    if bool(bad):
+        c = torch.linalg.pinv(A, rtol=1e-10) @ r
+    return c
+
+
+def _direction(form, x, b, fields, opts: NewtonOptions):
+    """Newton direction c of J c = r (residual, Jacobian state, linear
+    solve); returns (c, Krylov iterations or None)."""
+    r = _residual(form, x, b, fields)
+    state = form.grad_state(x, fields)
+    if opts.lin_solver == "dense":
+        return dense_solve(form.assemble_dense(state), r), None
+    if callable(opts.lin_solver):
+        return opts.lin_solver(form, state, r), None
+    M = _make_precond(form, state, opts.preconditioner)
     mv = lambda v: form.grad_mult(state, v)  # noqa: E731
     if opts.lin_solver == "gmres":
         return gmres(mv, r, M=M, tol=opts.lin_tol, maxiter=opts.lin_maxiter)
-    return cg(mv, r, M=M, tol=opts.lin_tol, maxiter=opts.lin_maxiter,
-              stall_window=opts.lin_stall_window)
+    solve = cg if opts.lin_solver == "cg" else minres
+    return solve(mv, r, M=M, tol=opts.lin_tol, maxiter=opts.lin_maxiter,
+                 stall_window=opts.lin_stall_window)
 
 
-def _apply_step(form, x, c, b, norm):
-    """``x - d*c`` with a backtracking safeguard: halve ``d = 1`` (up to 4
-    times) while the step increases the residual norm, and keep the least-
-    bad candidate if every damping fails; returns ``x`` itself when every
-    candidate's residual is NaN."""
-    d = 1.0
+def _apply_step(form, x, c, b, fields, norm, opts):
+    """``x - d*c`` with a backtracking safeguard: halve ``d =
+    opts.damping`` (up to 4 times) while the step increases the residual
+    norm, and keep the least-bad candidate if every damping fails; returns
+    ``x`` itself when every candidate's residual is NaN."""
+    d = opts.damping
     best_x, best_n = None, np.inf
     for _ in range(5):
         xn = x - d * c
-        nn = _residual_norm(form, xn, b)
+        nn = float(torch.linalg.vector_norm(_residual(form, xn, b, fields)))
         if nn <= norm * (1.0 + 1e-10):
             return xn
         if nn < best_n:
@@ -243,16 +353,21 @@ def _apply_step(form, x, c, b, norm):
     return x if best_x is None else best_x
 
 
-def newton(form, x0, b=None, opts: NewtonOptions | None = None):
-    """MFEM-NewtonSolver-style damped Newton on ``form.mult(x) = b`` with
-    a matrix-free Krylov direction (``opts.lin_solver``: "cg" or
-    "gmres"), optionally Jacobi-preconditioned."""
+def newton(form, x0, b=None, fields=None, opts: NewtonOptions | None = None):
+    """MFEM-NewtonSolver-style damped Newton on ``form.mult(x, fields) =
+    b``; the direction comes from ``opts.lin_solver``: a matrix-free
+    Krylov solve ("cg", "gmres", "minres"; preconditioned per
+    ``opts.preconditioner``), the dense direct solve of the assembled
+    Jacobian ("dense", ``dense_solve``), or a callable
+    ``(form, state, r) -> c``."""
     opts = opts or NewtonOptions()
-    if opts.lin_solver not in ("cg", "gmres"):
-        raise NotImplementedError(
-            f"lin_solver={opts.lin_solver!r}: only 'cg' and 'gmres'")
-    if opts.preconditioner not in (None, "jacobi"):
+    if not (callable(opts.lin_solver)
+            or opts.lin_solver in _KRYLOV + ("dense",)):
+        raise ValueError(f"unknown lin_solver {opts.lin_solver!r}")
+    if not (opts.preconditioner in (None, "jacobi")
+            or callable(opts.preconditioner)):
         raise ValueError(f"unknown preconditioner {opts.preconditioner!r}")
+    fields = fields or {}
     x = x0
     b = torch.zeros_like(x) if b is None else b.to(x.dtype)
 
@@ -263,22 +378,25 @@ def newton(form, x0, b=None, opts: NewtonOptions | None = None):
     norm = np.inf
     stalled = 0
     for it in range(opts.max_iter + 1):
-        norm = _residual_norm(form, x, b)
+        norm = float(torch.linalg.vector_norm(_residual(form, x, b, fields)))
         hist.append(norm)
         if norm0 is None:
             norm0 = norm
+        if opts.verbose:
+            print(f"  newton it {it:3d}: ||r|| = {norm:.6e}", flush=True)
         if norm <= max(opts.rel_tol * norm0, opts.abs_tol):
             converged = True
             break
         if it == opts.max_iter:
             break
-        # two consecutive <5% reductions: Newton has floored
+        # consecutive <5% reductions: Newton has floored
         stalled = stalled + 1 if it > 0 and norm > 0.95 * hist[-2] else 0
-        if stalled >= _STALL_ITERS:
+        if opts.stall_iters is not None and stalled >= opts.stall_iters:
             break
-        c, li = _direction(form, x, b, opts)
-        lin_iters.append(li)
-        xn = _apply_step(form, x, c, b, norm)
+        c, li = _direction(form, x, b, fields, opts)
+        if li is not None:
+            lin_iters.append(li)
+        xn = _apply_step(form, x, c, b, fields, norm, opts)
         if xn is x:
             break
         x = xn
