@@ -65,11 +65,26 @@ main paths through their public entry points:
         3D p2 32^3, f32, against the blocked kernel's A, with the end-to-
         end time, its two parts and cuBLAS's bare W0 GEMM;
      F3 the ex1-ex3 examples' ``main``: ex1's MMS rates at p = 1, 2, 3 over
-        three refinements; ex1, ex2 (30 passes), ex3 2D and ex3 3D p1 with
+        three refinements; ex1, ex2 (10 passes), ex3 2D and ex3 3D p1 with
         ``--solver dense`` and ``minres`` against ``cg``; the dense
         Jacobian against the matrix-free action at 3D p2;
      F4 the bench (``mfem_ad_tpu_torch.bench``): its sweep table and its
-        headline line.
+        headline line;
+  G. geometric multigrid and the LVPP obstacle path (no kernel):
+     G1 Newton on phase C's problem (512x512 neo-Hookean, f64) with CG
+        preconditioned by a nonlinear GMG over 6 levels (512 -> 16 cells):
+        CG iterations per step and wall time against phase C's Jacobi-CG,
+        the largest difference of the two solutions, one V-cycle's time;
+     G2 ex4's ``main`` at the reference defaults with the smoke flags
+        (order 2, ref 3, 83,681 dofs, -rule 2 -a0 0.1 -ar 2), Schur + the
+        shifted hp-GMG, run to convergence: PG and Newton iterations, CG
+        per Newton step, the lambda-diff trajectory, u's range within the
+        reference's bounds, wall time;
+     G3 ex4's problem at ref 5 (1,333,121 dofs), 3 PG iterations: time per
+        iteration, CG per Newton step against G2's, and one direction's
+        grad_state, Schur arrays and CG;
+     G4 the Schur direction against the dense direct solver, order 2 ref
+        1, 12 fixed PG iterations.
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
@@ -86,6 +101,8 @@ with an error.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -112,13 +129,22 @@ from mfem_ad_tpu_torch.adeval import ADEval
 from mfem_ad_tpu_torch.fespace import FESpace
 from mfem_ad_tpu_torch.forms import LinearForm, NonlinearForm
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator
-from mfem_ad_tpu_torch.examples import ex1, ex2, ex3
-from mfem_ad_tpu_torch.models import elasticity, minimal_surface, poisson
+from mfem_ad_tpu_torch import solvers
+from mfem_ad_tpu_torch.examples import ex1, ex2, ex3, ex4
+from mfem_ad_tpu_torch.models import (
+    elasticity,
+    minimal_surface,
+    obstacle,
+    poisson,
+)
+from mfem_ad_tpu_torch.multigrid import GMG, build_hierarchy
 from mfem_ad_tpu_torch.ops import ad_jacobian as adj
 from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
 from mfem_ad_tpu_torch.ops import nvcc
+from mfem_ad_tpu_torch.pg import PGStepSizeRule
 from mfem_ad_tpu_torch.solvers import NewtonOptions, newton
+from mfem_ad_tpu_torch.utils import profiling
 
 MODE = ADEval.GRAD | ADEval.VECTOR
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}  # x max|A|
@@ -242,10 +268,12 @@ def phase_b_main(intg, u):
     return A, asym / scale
 
 
-def neohookean_ex3(dev):
+def neohookean_ex3(dev, m=None):
     """ex3's clamped-left boundary and body force (scaled by NH_SCALE),
-    neo-Hookean, 16x16 refined 5 times = 512x512 Q1, f64."""
-    m = M.make_cartesian_2d(16, 16).uniform_refine(5)
+    neo-Hookean, Q1, f64, on ``m`` (default 16x16 refined 5 times =
+    512x512)."""
+    if m is None:
+        m = M.make_cartesian_2d(16, 16).uniform_refine(5)
     fes = FESpace(m, 1, vdim=2)
     form = NonlinearForm(fes, device=dev, dtype=torch.float64)
     form.add_ad_integrator(NeoHookeanEnergy(2, 1.0, 1.0), MODE)
@@ -1085,7 +1113,9 @@ def phase_f3(dev):
     runs = {
         "ex1": (lambda s: ex1.main(["--solver", s] + dv)[0],
                 lambda r: (r.x, r.converged)),
-        "ex2": (lambda s: ex2.main(["--solver", s] + dv),
+        # 10 continuation passes (ex2's default is 30): the cg and minres
+        # runs are host-bound, and phase G needs the time
+        "ex2": (lambda s: ex2.main(["-n", "10", "--solver", s] + dv),
                 lambda r: (r[0], all(h.converged for h in r[1]))),
         "ex3 2D": (lambda s: ex3.main(["--solver", s] + dv)[0],
                    lambda r: (r.x, r.converged)),
@@ -1142,6 +1172,225 @@ def phase_f4(dev):
     log("phase F4 ok")
 
 
+# ---------------------------------------------------------------------------
+# G: geometric multigrid and the LVPP obstacle path (ex4)
+# ---------------------------------------------------------------------------
+
+
+G1_N0, G1_LEVELS = 16, 6  # GMG levels of phase C's mesh: 512 -> 16 cells
+# ex4's smoke flags at the reference defaults (order 2, ref 3, n0 10)
+EX4_FLAGS = ["-o", "2", "-r", "3", "-rule", "2", "-a0", "0.1", "-ar", "2",
+             "-ma", "1e4"]
+PG_LINE = re.compile(
+    r"PG it (\d+): alpha=(\S+) newton=(\d+)(?: lin=(\d+))? "
+    r"\|lam diff\|_L1=(\S+) \[(\S+)s\]")
+
+
+def vcycle_ms(gmg) -> float:
+    """CUDA-event ms of one V-cycle from the finest level."""
+    f = gmg.forms[0]
+    b = torch.where(f.ess_mask, 0.0, seeded(f.ndof, 1.0, 41, f.dtype,
+                                            f.device))
+    return call_ms(lambda: gmg.vcycle(0, b), reps=10)
+
+
+def gmg_levels(gmg) -> str:
+    return " -> ".join(f"{f.spaces[0].order}:{'x'.join(map(str, s))}"
+                       for f, s in zip(gmg.forms, gmg.shapes))
+
+
+def phase_g1(dev, c_x, c_lin, c_wall):
+    """Newton on phase C's problem (512x512 neo-Hookean, f64, 526,338
+    dofs) with CG preconditioned by a nonlinear GMG over 6 levels (512 ->
+    16 cells), against phase C's Jacobi-CG run."""
+    built = {}
+
+    def level(n):
+        built[n] = neohookean_ex3(dev, M.make_cartesian_2d(n, n))
+        return built[n][0]
+
+    forms = build_hierarchy(level, G1_N0, G1_LEVELS)
+    form, fes, b = built[G1_N0 * 2 ** (G1_LEVELS - 1)]
+    gmg = GMG(forms, nonlinear=True)
+    log(f"G1 levels (order:grid) {gmg_levels(gmg)}, factors {gmg.factors}")
+    opts = NewtonOptions(
+        abs_tol=0.0, rel_tol=1e-10, max_iter=6, lin_solver="cg",
+        lin_tol=1e-10, lin_maxiter=20000, lin_stall_window=None,
+        preconditioner=gmg.as_preconditioner(),
+    )
+    x0 = torch.zeros(fes.ndof, dtype=torch.float64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = newton(form, x0, b=b, opts=opts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = res.history
+    log(f"G1 newton 512x512 f64 GMG-CG ({fes.ndof} dofs): history "
+        f"{[f'{v:.6e}' for v in h]}")
+    log(f"G1 cg iterations per step {res.lin_iters} (phase C Jacobi: "
+        f"{c_lin}); converged {res.converged}; wall {wall:.3f} s (phase C: "
+        f"{c_wall:.3f} s)")
+    if not (res.converged or h[-1] <= 1e-8 * h[0]):
+        raise AssertionError("G1: Newton-GMG neither converged nor dropped "
+                             "1e-8")
+    diff = float((res.x - c_x).abs().max() / c_x.abs().max())
+    log(f"G1 |x GMG - x Jacobi (phase C)| = {diff:.3e} max|x| (tol 1e-6)")
+    if not diff <= 1e-6:
+        raise AssertionError("G1: the GMG solution disagrees with phase C's")
+    log(f"G1 one V-cycle at 512x512 (6 levels): {vcycle_ms(gmg):.4f} ms")
+    log("phase G1 ok")
+
+
+def run_captured(fn):
+    """fn() with its standard output captured; returns (result, text)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def pg_lines(text: str, tag: str) -> list[dict]:
+    """The PG iterations of a verbose LVPP run, logged under ``tag``."""
+    rows = []
+    for line in text.splitlines():
+        log(f"{tag} | {line}")
+        m = PG_LINE.search(line)
+        if m:
+            rows.append({"alpha": float(m[2]), "newton": int(m[3]),
+                         "lin": int(m[4] or 0), "lam_diff": float(m[5]),
+                         "s": float(m[6])})
+    return rows
+
+
+def phase_g2(dev):
+    """ex4 at the reference defaults with the smoke flags (order 2, ref 3:
+    80x80 quads, H1 Q3 + L2 Q1, 83,681 dofs), Schur + the shifted
+    hp-GMG, run to convergence."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (res, pb), text = run_captured(
+        lambda: ex4.main(EX4_FLAGS + ["--device", str(dev)]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = pg_lines(text, "G2")
+    u = pb.form.split(res.x)[0]
+    umin, umax = float(u.min()), float(u.max())
+    cg_per_step = [r["lin"] / max(r["newton"], 1) for r in rows]
+    log(f"G2 ex4 {' '.join(EX4_FLAGS)} ({pb.form.ndof} dofs): PG iterations "
+        f"{res.iterations} (reference's claim: 38), converged "
+        f"{res.converged}, final lambda diff {res.lambda_diff:.4e} "
+        f"(claim: 5.004e-11), u in [{umin:.6e}, {umax:.6f}] (claim: [0, "
+        f"0.50016])")
+    log(f"G2 newton iterations per PG iteration {res.newton_iters}")
+    log(f"G2 lin_iters (CG, refinement pass included) per PG iteration "
+        f"{[r['lin'] for r in rows]}; CG per Newton step "
+        f"{[round(c, 1) for c in cg_per_step]}")
+    diffs = ", ".join(f"{r['lam_diff']:.4e}" for r in rows)
+    log(f"G2 lambda diff per PG iteration [{diffs}]")
+    log(f"G2 wall {wall:.3f} s, {wall / res.iterations:.3f} s per PG "
+        f"iteration (per iteration {[r['s'] for r in rows]})")
+    if len(rows) != res.iterations:
+        raise AssertionError("G2: PG lines do not match the iterations")
+    if not res.converged:
+        raise AssertionError("G2: ex4 did not converge")
+    if not (umin > -1e-8 and umax < 0.5 + 5e-3):
+        raise AssertionError(f"G2: u outside the bounds [{umin}, {umax}]")
+    gmg = obstacle._primal_gmg(2, 3, 10, device=dev).gmg
+    log(f"G2 hp-GMG levels (order:grid) {gmg_levels(gmg)}; one V-cycle "
+        f"{vcycle_ms(gmg):.4f} ms")
+    log("phase G2 ok")
+    return cg_per_step
+
+
+G3_REFS, G3_ITERS = 5, 3  # 320x320 quads, H1 Q3 + L2 Q1: 1,333,121 dofs
+
+
+def phase_g3(dev, g2_cg):
+    """ex4's problem at ref 5 (1,333,121 dofs), 3 PG iterations with
+    tol=0: time per iteration, CG per Newton step against G2's, and the
+    parts of one Schur direction."""
+    profiling.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (res, pb), text = run_captured(lambda: obstacle.solve(
+        order=2, ref_levels=G3_REFS, rule_type=PGStepSizeRule.EXP,
+        alpha0=0.1, ratio=2.0, max_pg_iter=G3_ITERS, tol=0.0, verbose=True,
+        device=dev))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = pg_lines(text, "G3")
+    stats = profiling.cost_table()
+    nd = stats["newton/direction"]
+    cg = [r["lin"] / max(r["newton"], 1) for r in rows]
+    log(f"G3 ex4 order 2 ref {G3_REFS} ({pb.form.ndof} dofs): "
+        f"{res.iterations} PG iterations, newton {res.newton_iters}, wall "
+        f"{wall:.3f} s, {wall / res.iterations:.3f} s per PG iteration")
+    log(f"G3 CG per Newton step {[round(c, 1) for c in cg]} (G2's first "
+        f"{G3_ITERS}: {[round(c, 1) for c in g2_cg[:G3_ITERS]]})")
+    log(f"G3 newton/direction {1e3 * nd.total_s / nd.count:.1f} ms per "
+        f"direction over {nd.count} directions")
+    if res.iterations != G3_ITERS or not bool(torch.isfinite(res.x).all()):
+        raise AssertionError("G3: the run did not finish its iterations")
+    # the parts of one direction at the last iterate
+    form = pb.form
+    lo = int(form.offsets[1])
+    fields = {"alpha": PGStepSizeRule(PGStepSizeRule.EXP, 0.1, 1e4,
+                                      2.0).get(G3_ITERS - 1),
+              "latent_k0": res.x[lo:]}
+    gs = call_ms(lambda: form.grad_state(res.x, fields), reps=3, warmup=1)
+    state = form.grad_state(res.x, fields)
+    arr = call_ms(lambda: solvers._schur_arrays(form, state, 1e-6, True),
+                  reps=3, warmup=1)
+    r = torch.where(form.ess_mask, 0.0, form.mult(res.x, fields) - pb.rhs)
+    fp = obstacle._primal_gmg(2, G3_REFS, 10, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dx, its = solvers.schur_solve(form, state, r, 1e-13, 2000, fp=fp)
+    torch.cuda.synchronize()
+    sol = 1e3 * (time.perf_counter() - t1)
+    log(f"G3 one direction at the last iterate: grad_state {gs:.2f} ms, "
+        f"Schur arrays {arr:.2f} ms, Schur solve {sol:.1f} ms ({its} CG "
+        f"iterations, {(sol - arr) / max(its, 1):.2f} ms per CG iteration "
+        f"with the shifted V-cycle); one V-cycle {vcycle_ms(fp.gmg):.4f} ms "
+        f"({gmg_levels(fp.gmg)})")
+    log("phase G3 ok")
+
+
+G4_REFS = 1
+
+
+def phase_g4(dev):
+    """Schur + hp-GMG against the dense direct solver on the card: order
+    2, ref 1, 12 fixed PG iterations (the JAX package's
+    test_inexact_schur_matches_tight_dense_obstacle)."""
+    kw = dict(order=2, ref_levels=G4_REFS, rule_type=PGStepSizeRule.EXP,
+              alpha0=0.1, ratio=2.0, max_pg_iter=12, tol=0.0, device=dev)
+    walls = {}
+    for solver in ("schur", "dense"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        walls[solver] = obstacle.solve(lin_solver=solver, **kw)
+        torch.cuda.synchronize()
+        walls[solver] += (time.perf_counter() - t0,)
+    (res_s, pb, t_s), (res_d, _, t_d) = walls["schur"], walls["dense"]
+    nu = pb.primal_space.ndof
+    rel = rel_l2(res_s.x[:nu], res_d.x[:nu])
+
+    def mirror(x):
+        return 0.5 / (1.0 + torch.exp(-0.5 * x[nu:]))
+
+    mdiff = float((mirror(res_s.x) - mirror(res_d.x)).abs().max())
+    log(f"G4 order 2 ref {G4_REFS} ({pb.form.ndof} dofs), 12 PG iterations: newton "
+        f"schur {res_s.newton_iters} dense {res_d.newton_iters}; |u schur - "
+        f"u dense| = {rel:.3e} |u dense| (tol 1e-4), max mirror difference "
+        f"{mdiff:.3e} (tol 1e-3); wall schur {t_s:.1f} s, dense {t_d:.1f} s")
+    if res_s.iterations != 12 or res_d.iterations != 12:
+        raise AssertionError("G4: a run stopped early")
+    if not (rel < 1e-4 and mdiff < 1e-3):
+        raise AssertionError("G4: the Schur direction disagrees with dense")
+    log("phase G4 ok")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1178,6 +1427,7 @@ def main() -> int:
     log("phase C ok")
 
     phase_c_breakdown(form, res.x)
+    c_run = (res.x, res.lin_iters, wall)
     err, k_ms, p_ms = phase_b_timing(intg, u, A_main)
     b_ms, b_by = bound(intg.tables["edof"][0].shape[0], intg.nq,
                        intg.n_input, 8, 2, torch.float32)
@@ -1278,6 +1528,27 @@ def main() -> int:
         t0 = time.perf_counter()
         phase(dev)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+
+    # no kernel lies on phase G's path: its launch counts stay 0
+    kernels = (fj.fused_element_jacobian, adj.ad_element_jacobian,
+               bj.blocked_element_jacobian)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    phase_g1(dev, *c_run)
+    del c_run
+    torch.cuda.empty_cache()
+    log(f"phase_g1: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    g2_cg = phase_g2(dev)
+    log(f"phase_g2: {time.perf_counter() - t0:.1f} s")
+    for phase, args in ((phase_g3, (g2_cg,)), (phase_g4, ())):
+        t0 = time.perf_counter()
+        phase(dev, *args)
+        torch.cuda.empty_cache()
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    log("G kernel launches (full-W, AD, blocked): "
+        f"{[k.launches for k in kernels]}")
 
     print(json.dumps({"kernels": [{
         "name": "fused_element_jacobian",

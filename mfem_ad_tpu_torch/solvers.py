@@ -2,10 +2,12 @@
 MFEM-NewtonSolver-style Newton.
 
 PyTorch counterpart of ``mfem_ad_tpu.solvers`` (``cg``, ``gmres``,
-``minres``, ``newton`` with ``lin_solver`` "cg", "gmres", "minres",
-"dense" or a callable).  ``newton`` solves ``form.mult(x, fields) = b``:
-it solves J c = r with r = mult(x) - b, updates x <- x - d c, and
-converges on ||r|| <= max(rel_tol*||r0||, abs_tol).
+``minres``, the Schur elimination of the LVPP saddle system
+``schur_solve`` / ``make_pg_schur_solver``, ``newton`` with ``lin_solver``
+"cg", "gmres", "minres", "dense", "schur" or a callable).  ``newton``
+solves ``form.mult(x, fields) = b``: it solves J c = r with r = mult(x) -
+b, updates x <- x - d c, and converges on ||r|| <= max(rel_tol*||r0||,
+abs_tol).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from .utils import profiling
 
 
 # CG and MINRES read their stopping test back to the host every this many
@@ -249,6 +253,175 @@ def minres(matvec, b, x0=None, M=None, tol=1e-10, maxiter=1000,
 
 
 # ---------------------------------------------------------------------------
+# Schur-complement solver for (u, psi) saddle systems with an L2 latent
+# ---------------------------------------------------------------------------
+
+
+def _schur_arrays(form, state, reg: float, jacobi: bool):
+    """The array pieces of the Schur reduction, once per Newton direction:
+    the inverse latent element blocks ``De_inv`` and, with ``jacobi``, the
+    condensed Jacobi diagonal ``safe`` and the reaction diagonal
+    ``dshift`` = diag(C D^-1 C^T) on the primal block (zero at essential
+    dofs), the shift of the V-cycle."""
+    intg, Hq = form.integrators[0], state[0]
+    t = intg.tables
+    off = form.offsets
+    lb = len(off) - 2
+    ub = lb - 1
+    n0 = int(off[lb])
+    out = {}
+    De = -intg.element_matrices(Hq, lb, lb)  # [ne, ndl, ndl]
+    ndl = De.shape[1]
+    # E*'' underflows where the mirror map saturates (the active set),
+    # making D_e numerically singular; a relative shift keeps the condensed
+    # system solvable.  Its size is load-bearing: near the Newton solution
+    # the true step stays O(1e2) even at ||r|| ~ 1e-6, and a too-small
+    # shift amplifies solve noise by 1/(reg*dmax) into a divergent step
+    # (the JAX package measured reg = 1e-10 against a dense solve: relative
+    # step error 1.1e+2; reg = 1e-6 with one refinement pass: 4e-5).  The
+    # absolute mass-scaled floor guards blocks that flush to exactly zero.
+    dmax = torch.max(torch.abs(De))
+    eye = torch.eye(ndl, dtype=De.dtype, device=De.device)
+    Bl = t["B"][lb][..., 0]  # [1|ne, nq, ndl] latent VALUE shapes
+    Me = torch.einsum("eqd,eqk,eq->edk", Bl, Bl, t["w"])
+    out["De_inv"] = torch.linalg.inv(De + (reg * dmax) * eye + 1e-20 * Me)
+    if jacobi:
+        # diag(S) = diag(A) + diag(C D^-1 C^T); the second term dominates
+        # as alpha grows (D ~ E*''/alpha -> 0 on the active set)
+        d_full = torch.abs(form.grad_diag(state))
+        ess_u = form.ess_mask[:n0]
+        Ce = intg.element_matrices(Hq, ub, lb)  # [ne, nde_u, ndl]
+        ne = Ce.shape[0]
+        sp_u = form.spaces[ub]
+        dS = torch.einsum("eij,ejk,eik->ei", Ce, out["De_inv"], Ce)
+        # byNODES flat rows (v, d) = v*nd + d -> [ne, nd, vdim] to scatter
+        dS3 = dS.reshape(ne, sp_u.vdim, sp_u.nd).permute(0, 2, 1)
+        dS_nodes = intg.scatter(ub, dS3)
+        d = d_full[:n0] + dS_nodes
+        out["dshift"] = torch.where(ess_u, 0.0, dS_nodes)
+        out["safe"] = torch.where(d < 1e-30, 1.0, d)
+    return out
+
+
+def schur_solve(form, state, r, tol: float, maxiter: int, reg: float = 1e-6,
+                jacobi: bool = True, refine: int = 1, fp=None):
+    """Schur reduction of the 2-block LVPP saddle Jacobian [[A, C], [C^T,
+    -D]] whose latent block D is element-block-diagonal (an L2 latent:
+    its dofs never couple across elements).  The latent is eliminated
+    exactly,
+
+        (A + C D^-1 C^T) du = r_u + C D^-1 r_psi,
+        dpsi = D^-1 (C^T du - r_psi),
+
+    and the SPD condensed system is solved by CG, preconditioned (with
+    ``jacobi``) by its Jacobi diagonal or, with ``fp`` (a
+    ``multigrid.PGSchurGMG``), by the V-cycle shifted by the reaction
+    diagonal.  The latent blocks are regularized (``reg`` times their
+    largest entry) so the solve is range-safe where the mirror map
+    saturates; ``refine`` passes of iterative refinement against the true
+    Jacobian remove the O(reg) direction error.
+
+    Returns (dx, CG iterations summed over the solve and its refinement
+    passes).  A latent space that is not L2 needs the lumped Schur
+    complement, which is not ported.
+    """
+    if form.spaces[-1].fe_type != "L2":
+        raise NotImplementedError(
+            "the lumped Schur direction for a non-L2 latent (ex5's H1 "
+            "latent) is not ported yet (ROADMAP A5)"
+        )
+    if fp is not None and not hasattr(fp, "apply_primal"):
+        raise ValueError(
+            f"lin_solver='schur' takes a multigrid.PGSchurGMG "
+            f"preconditioner (or none, or 'jacobi'), not {type(fp).__name__}"
+        )
+    arrays = _schur_arrays(form, state, reg, jacobi)
+    De_inv = arrays["De_inv"]
+    ne, ndl = De_inv.shape[0], De_inv.shape[1]
+    n0 = int(form.offsets[-2])
+    n1 = form.ndof - n0
+
+    def Dinv(w):  # L2 dofs are element-contiguous: a pure reshape
+        return torch.einsum("eij,ej->ei", De_inv, w.reshape(ne, ndl)
+                            ).reshape(-1)
+
+    def pad_u(v):
+        return torch.cat([v, torch.zeros(n1, dtype=v.dtype, device=v.device)])
+
+    def pad_p(w):
+        return torch.cat([torch.zeros(n0, dtype=w.dtype, device=w.device), w])
+
+    def mv(v):
+        return form.grad_mult(state, v)
+
+    def S(v):
+        Jv = mv(pad_u(v))
+        Av, Ctv = Jv[:n0], Jv[n0:]
+        return Av + mv(pad_p(Dinv(Ctv)))[:n0]
+
+    M = None
+    if jacobi and fp is not None:
+        # the V-cycle on A + diag(C D^-1 C^T): it handles both the
+        # diffusion-dominated dofs and the alpha-amplified reaction
+        sdata = fp.shift_data(arrays["dshift"])
+        M = lambda v: fp.apply_primal(v, sdata)  # noqa: E731
+    elif jacobi:
+        safe = arrays["safe"]
+        M = lambda v: v / safe  # noqa: E731
+
+    def solve_reg(rr):
+        r_u, r_p = rr[:n0], rr[n0:]
+        rhs = r_u + mv(pad_p(Dinv(r_p)))[:n0]
+        du, k = cg(S, rhs, M=M, tol=tol, maxiter=maxiter)
+        dp = Dinv(mv(pad_u(du))[n0:] - r_p)
+        return torch.cat([du, dp]), k
+
+    dx, its = solve_reg(r)
+    for _ in range(refine):
+        d1, k = solve_reg(r - mv(dx))
+        dx = dx + d1
+        its += k
+    return dx, its
+
+
+def _check_schur_form(form, latent_block: int = 1):
+    """The refusals of the Schur direction: it needs a 2-block (primal,
+    latent-last) system, element-block access and no essential dofs on
+    the latent block."""
+    off = form.offsets
+    if len(off) != 3 or latent_block != len(off) - 2:
+        raise ValueError(
+            "lin_solver='schur' needs a 2-block (primal, latent) system "
+            f"with the latent block last; got {len(off) - 1} blocks, "
+            f"latent_block={latent_block}"
+        )
+    if not hasattr(form, "integrators"):
+        raise ValueError(
+            "lin_solver='schur' needs element-block access "
+            "(BlockNonlinearForm)"
+        )
+    if bool(form.ess_mask[int(off[1]):].any()):
+        raise ValueError(
+            "lin_solver='schur' requires no essential dofs on the latent "
+            "block"
+        )
+
+
+def make_pg_schur_solver(latent_block: int = 1, tol: float = 1e-12,
+                         maxiter: int = 2000, jacobi: bool = True,
+                         reg: float = 1e-6):
+    """Exact Schur reduction of the LVPP saddle Jacobian as a callable
+    ``NewtonOptions.lin_solver`` (``schur_solve`` with Jacobi-CG).  The
+    form must have one integrator and an L2 latent block last."""
+
+    def solve(form, state, r):
+        _check_schur_form(form, latent_block)
+        return schur_solve(form, state, r, tol, maxiter, reg, jacobi)[0]
+
+    return solve
+
+
+# ---------------------------------------------------------------------------
 # Newton
 # ---------------------------------------------------------------------------
 
@@ -319,14 +492,27 @@ def dense_solve(A, r):
 
 def _direction(form, x, b, fields, opts: NewtonOptions):
     """Newton direction c of J c = r (residual, Jacobian state, linear
-    solve); returns (c, Krylov iterations or None)."""
+    solve); returns (c, Krylov iterations or None).
+
+    A preconditioner factory that carries ``fused_precond`` (the
+    ``multigrid`` preconditioners) is asked for the direction's
+    preconditioner at the iterate: a GMG's finest level takes the Newton
+    state and a nonlinear GMG re-linearizes every level at ``x``.  The
+    Schur direction takes it as its condensed-system preconditioner."""
     r = _residual(form, x, b, fields)
     state = form.grad_state(x, fields)
+    fp = getattr(opts.preconditioner, "fused_precond", None)
+    if opts.lin_solver == "schur":
+        return schur_solve(form, state, r, opts.lin_tol, opts.lin_maxiter,
+                           fp=fp)
     if opts.lin_solver == "dense":
         return dense_solve(form.assemble_dense(state), r), None
     if callable(opts.lin_solver):
         return opts.lin_solver(form, state, r), None
-    M = _make_precond(form, state, opts.preconditioner)
+    if fp is not None:
+        M = fp.newton_precond(form, x, state, fields)
+    else:
+        M = _make_precond(form, state, opts.preconditioner)
     mv = lambda v: form.grad_mult(state, v)  # noqa: E731
     if opts.lin_solver == "gmres":
         return gmres(mv, r, M=M, tol=opts.lin_tol, maxiter=opts.lin_maxiter)
@@ -340,6 +526,11 @@ def _apply_step(form, x, c, b, fields, norm, opts):
     opts.damping`` (up to 4 times) while the step increases the residual
     norm, and keep the least-bad candidate if every damping fails; returns
     ``x`` itself when every candidate's residual is NaN."""
+    with profiling.phase("newton/line_search"):
+        return _apply_step_impl(form, x, c, b, fields, norm, opts)
+
+
+def _apply_step_impl(form, x, c, b, fields, norm, opts):
     d = opts.damping
     best_x, best_n = None, np.inf
     for _ in range(5):
@@ -358,12 +549,16 @@ def newton(form, x0, b=None, fields=None, opts: NewtonOptions | None = None):
     b``; the direction comes from ``opts.lin_solver``: a matrix-free
     Krylov solve ("cg", "gmres", "minres"; preconditioned per
     ``opts.preconditioner``), the dense direct solve of the assembled
-    Jacobian ("dense", ``dense_solve``), or a callable
-    ``(form, state, r) -> c``."""
+    Jacobian ("dense", ``dense_solve``), the exact Schur elimination of an
+    LVPP saddle system with an L2 latent ("schur", ``schur_solve``;
+    ``lin_iters`` counts its CG iterations, refinement pass included), or
+    a callable ``(form, state, r) -> c``."""
     opts = opts or NewtonOptions()
     if not (callable(opts.lin_solver)
-            or opts.lin_solver in _KRYLOV + ("dense",)):
+            or opts.lin_solver in _KRYLOV + ("dense", "schur")):
         raise ValueError(f"unknown lin_solver {opts.lin_solver!r}")
+    if opts.lin_solver == "schur":
+        _check_schur_form(form)
     if not (opts.preconditioner in (None, "jacobi")
             or callable(opts.preconditioner)):
         raise ValueError(f"unknown preconditioner {opts.preconditioner!r}")
@@ -378,7 +573,9 @@ def newton(form, x0, b=None, fields=None, opts: NewtonOptions | None = None):
     norm = np.inf
     stalled = 0
     for it in range(opts.max_iter + 1):
-        norm = float(torch.linalg.vector_norm(_residual(form, x, b, fields)))
+        with profiling.phase("newton/residual"):
+            norm = float(torch.linalg.vector_norm(
+                _residual(form, x, b, fields)))
         hist.append(norm)
         if norm0 is None:
             norm0 = norm
@@ -393,7 +590,8 @@ def newton(form, x0, b=None, fields=None, opts: NewtonOptions | None = None):
         stalled = stalled + 1 if it > 0 and norm > 0.95 * hist[-2] else 0
         if opts.stall_iters is not None and stalled >= opts.stall_iters:
             break
-        c, li = _direction(form, x, b, fields, opts)
+        with profiling.phase("newton/direction", sync=x):
+            c, li = _direction(form, x, b, fields, opts)
         if li is not None:
             lin_iters.append(li)
         xn = _apply_step(form, x, c, b, fields, norm, opts)
