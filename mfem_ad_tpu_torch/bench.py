@@ -16,6 +16,10 @@ Jacobians/s, the CPU bracket the JAX package's bench normalizes by.
 
 ``BENCH_SWEEP=1`` first prints a markdown table to stderr: p = 1..3, 2D at
 512^2 (p3 at 256^2) and 3D at 32^3 (p3 at 16^3), vector neo-Hookean f32,
+and two unstructured rows at p1 (the JAX bench's): 2D on the triangles of
+512^2 cells with their structure dropped and Morton-sorted
+(``unstructured_triangles``, 524,288 elements, in place of the JAX bench's
+sloped-rectangle file) and 3D on 16^3 Kuhn-split cubes (24,576 tets),
 with the residual and Jacobian rates (default route) and the rate of the
 AD kernel route, each Jacobian rate beside its share of the f32 FMA bound
 at 67 TFLOP/s (H100 SXM): the contraction and interpolation FMAs its
@@ -42,6 +46,7 @@ from .ad import NeoHookeanEnergy
 from .adeval import ADEval
 from .fespace import FESpace
 from .integrator import ADBlockIntegrator
+from .quadrature import TETRAHEDRON, TRIANGLE
 from .ops.ad_jacobian import ad_kernel_route_refusal
 from .ops.fused_jacobian import uses_blocked_kernel
 
@@ -51,14 +56,39 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # (order, dim, n) of the sweep
 SWEEP = tuple((p, 2, 256 if p == 3 else 512) for p in (1, 2, 3)) + tuple(
     (p, 3, 16 if p == 3 else 32) for p in (1, 2, 3))
+# (order, dim, n, mesh) of the unstructured rows
+SWEEP_UNSTRUCTURED = ((1, 2, 512, "unstructured"), (1, 3, 16, "tet"))
 
 
-def build(order: int, dim: int, n: int, device="cuda"):
-    """Vector neo-Hookean integrator on an n^dim structured mesh (f32) and
-    a seeded state u = (a/n) N(0, 1), a = 0.1 at p1 and 0.01 at p >= 2
-    (larger states invert elements: det F <= 0 gives NaN)."""
-    m = M.make_cartesian_2d(n, n) if dim == 2 else M.make_cartesian_3d(
-        n, n, n)
+def drop_structure(m: M.Mesh, sort: bool = True) -> M.Mesh:
+    """``m`` with its structure dropped (the generic dof exchange and the
+    geometry pullback serve it), its elements Morton-sorted with
+    ``sort``."""
+    u = M.Mesh(geom=m.geom, vertices=m.vertices, elements=m.elements,
+               attributes=m.attributes, bdr_elements=m.bdr_elements,
+               bdr_attributes=m.bdr_attributes, structured=None)
+    return M.spatial_sort(u) if sort else u
+
+
+def unstructured_triangles(n: int) -> M.Mesh:
+    """The n x n cells of the unit square split into triangles, with the
+    structure dropped and the elements Morton-sorted."""
+    return drop_structure(M.make_cartesian_2d(n, n, TRIANGLE))
+
+
+def build(order: int, dim: int, n: int, device="cuda", mesh: str = "cart"):
+    """Vector neo-Hookean integrator (f32) on an n^dim mesh, ``mesh``
+    "cart" (structured quads or hexes), "unstructured"
+    (``unstructured_triangles``, dim 2) or "tet" (Kuhn-split cubes, dim
+    3), and a seeded state u = (a/n) N(0, 1), a = 0.1 at p1 and 0.01 at
+    p >= 2 (larger states invert elements: det F <= 0 gives NaN)."""
+    if mesh == "unstructured":
+        m = unstructured_triangles(n)
+    elif mesh == "tet":
+        m = M.make_cartesian_3d(n, n, n, geom=TETRAHEDRON)
+    else:
+        m = M.make_cartesian_2d(n, n) if dim == 2 else M.make_cartesian_3d(
+            n, n, n)
     fes = FESpace(m, order, vdim=dim)
     intg = ADBlockIntegrator(NeoHookeanEnergy(dim, 1.0, 1.0), [fes],
                              [ADEval.GRAD | ADEval.VECTOR], device=device,
@@ -147,13 +177,14 @@ def headline(device="cuda", n: int = 512) -> dict:
             "unit": "elem/s", "vs_baseline": rate / CPU_BASELINE}
 
 
-def sweep_row(order: int, dim: int, n: int, device="cuda") -> dict:
+def sweep_row(order: int, dim: int, n: int, device="cuda",
+              mesh: str = "cart") -> dict:
     """One sweep row: residual, default-route and AD-route rates (the AD
     rate None where that route refuses, with the reason)."""
-    intg, u = build(order, dim, n, device)
+    intg, u = build(order, dim, n, device, mesh)
     route = intg.auto_route()
     jac = jacobian_rate(intg, u)
-    row = dict(order=order, dim=dim, elems=elements(intg),
+    row = dict(order=order, dim=dim, mesh=mesh, elems=elements(intg),
                residual=residual_rate(intg, u), jacobian=jac, route=route,
                share=fma_share(intg, route, jac), ad=None, ad_share=None,
                ad_refusal=ad_kernel_route_refusal(intg))
@@ -167,7 +198,8 @@ def sweep_row(order: int, dim: int, n: int, device="cuda") -> dict:
 def format_row(r: dict) -> str:
     ad = ("refused | —" if r["ad"] is None
           else f"{r['ad']:.6e} | {100 * r['ad_share']:.1f}%")
-    return (f"| p={r['order']} | {r['dim']}D | {r['elems']} | "
+    label = "" if r.get("mesh", "cart") == "cart" else f" {r['mesh']}"
+    return (f"| p={r['order']}{label} | {r['dim']}D | {r['elems']} | "
             f"{r['residual']:.6e} | {r['jacobian']:.6e} ({r['route']}) | "
             f"{100 * r['share']:.1f}% | {ad} |")
 
@@ -184,12 +216,13 @@ def main() -> int:
     print(f"bench: {torch.cuda.get_device_name(0)}", file=sys.stderr)
     if os.environ.get("BENCH_SWEEP", "") == "1":
         print(HEADER, file=sys.stderr, flush=True)
-        for order, dim, n in SWEEP:
-            r = sweep_row(order, dim, n)
+        rows = [c + ("cart",) for c in SWEEP] + list(SWEEP_UNSTRUCTURED)
+        for order, dim, n, mesh in rows:
+            r = sweep_row(order, dim, n, mesh=mesh)
             print(format_row(r), file=sys.stderr, flush=True)
             if r["ad_refusal"] is not None:
-                print(f"  AD route at p={order} {dim}D: {r['ad_refusal']}",
-                      file=sys.stderr, flush=True)
+                print(f"  AD route at p={order} {dim}D {mesh}: "
+                      f"{r['ad_refusal']}", file=sys.stderr, flush=True)
             torch.cuda.empty_cache()
     print(json.dumps(headline()), flush=True)
     return 0

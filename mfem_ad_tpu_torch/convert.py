@@ -4,7 +4,9 @@ from the very same data.
 ``tables_from_numpy`` takes a JAX integrator's ``tables`` with every leaf
 as a numpy array (``jax.tree_util.tree_map(np.asarray, intg.tables)``) and
 returns the port's tables dictionary, ready for
-``ADBlockIntegrator(..., tables=...)``.
+``ADBlockIntegrator(..., tables=...)``: element-varying B, w and statics
+(the pullback's ``_invj``) and the transpose-gather table ``einv`` come
+across as they are.
 """
 
 from __future__ import annotations
@@ -12,9 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-# tables consumed only by routes the port does not have yet: the
-# unstructured transpose-gather scatter and the planar 3D assembly
-_UNPORTED = ("einv", "W0p")
+# the planar 3D assembly's factor, consumed by a route the port does not
+# have (``element_matrices`` contracts against W0)
+_UNPORTED = ("W0p",)
 
 
 def _leaf(a, device, dtype):
@@ -27,9 +29,11 @@ def _leaf(a, device, dtype):
 def tables_from_numpy(tables: dict, device, dtype: torch.dtype) -> dict:
     out = {}
     for key, val in tables.items():
-        if key == "field":  # name -> (edof, phi); the port keeps phi
+        if key == "field":  # name -> (edof, phi): phi and "field_edof"
             out[key] = {k: _leaf(pair[1], device, dtype)
                         for k, pair in val.items()}
+            out["field_edof"] = {k: _leaf(pair[0], device, dtype)
+                                 for k, pair in val.items()}
             continue
         if key in _UNPORTED:
             continue
@@ -39,6 +43,9 @@ def tables_from_numpy(tables: dict, device, dtype: torch.dtype) -> dict:
             out[key] = {k: _leaf(v, device, dtype) for k, v in val.items()}
         else:
             out[key] = _leaf(val, device, dtype)
+    # element-varying shape tensors: the JAX package installs no W0 / W
+    for key in ("W0", "W"):
+        out.setdefault(key, {})
     return out
 
 

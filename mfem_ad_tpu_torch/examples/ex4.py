@@ -36,7 +36,7 @@ def main(argv=None):
                          "Jacobian (small problems)")
     ap.add_argument("-pv", "--paraview", action="store_true")
     ap.add_argument("--geom", default=None, choices=[None, "tet"],
-                    help="tetrahedral mesh (not ported yet)")
+                    help="tetrahedral mesh (dim=3 only; default hex)")
     ap.add_argument("-d", "--dim", type=int, default=2, choices=[2, 3],
                     help="3 = the obstacle problem on hexes")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",

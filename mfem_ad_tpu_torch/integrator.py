@@ -1,8 +1,8 @@
 """Batched AD assembly: energy, residual, Jacobian from a point energy.
 
-PyTorch counterpart of ``mfem_ad_tpu.integrator`` for structured meshes
-(uniform Cartesian quads and hexes).  The per-element dual-number loops of
-an AD integrator become batched tensor programs over ``[n_elem, n_qp]``:
+PyTorch counterpart of ``mfem_ad_tpu.integrator``.  The per-element
+dual-number loops of an AD integrator become batched tensor programs over
+``[n_elem, n_qp]``:
 
 - energy      = sum_eq f(B^T u) * w
 - residual    = scatter(B (grad f) w)
@@ -13,6 +13,25 @@ an AD integrator become batched tensor programs over ``[n_elem, n_qp]``:
 The tabulated tensors live in ``ADBlockIntegrator.tables``, a nested
 dictionary with the JAX package's keys and install rules, backed by the
 module's registered buffers.
+
+Dof exchange (gather of element dofs, its adjoint scatter), by space:
+
+- L2: element-contiguous dofs, a reshape;
+- structured quads and hexes ("h1"): one strided slice of the
+  lexicographic dof grid per element node;
+- structured triangles ("h1t"): the same, with one slice group per cell
+  orientation, interleaved into the e = 2*cell + t element order;
+- anything else (tets, meshes without their structure): an index gather
+  by ``edof``, and as its adjoint the transpose-gather: every dof sums the
+  element slots it appears in (``einv``, a fixed valence axis).  No
+  scatter-add and no atomics: the sum order is the same in every run.
+
+Unstructured meshes take the geometry pullback (``_PullbackEnergy``): the
+shape tensor is built from the reference basis, so it stays
+element-shared and the GEMM factors apply, and the per-element inverse
+Jacobian ``_invj`` maps reference gradients to physical ones inside the
+point energy.  Vector integrands and DIV/CURL/QVALUE modes keep physical,
+element-varying shape tensors and contract them by einsum.
 """
 
 from __future__ import annotations
@@ -32,7 +51,7 @@ from .coefficients import (
     ScalarFieldCoefficient,
 )
 from .fespace import FESpace
-from .geometry import geom_factors
+from .geometry import GeomFactors, geom_factors
 from .quadrature import default_ad_order, get_rule
 
 ROUTES = ("auto", "kernel", "kernel_ad", "two_stage")
@@ -110,21 +129,36 @@ def _mxu_cost(m_mult: int, k: int, n: int) -> int:
 
 
 def _space_gridmeta(space: FESpace):
-    """("l2",) for element-contiguous L2 dofs, ("h1", dims, ndims, offs, p)
-    for lexicographically numbered structured H1 dofs, else None."""
+    """The dof exchange of a space: ("l2",) for element-contiguous L2 dofs,
+    ("h1", dims, ndims, offs, p) for lexicographically numbered structured
+    H1 dofs, ("h1t", dims, ndims, offs[2, nd, 2], p) for structured
+    triangle meshes (one slice group per cell orientation), else None (the
+    generic gather by ``edof`` and the transpose-gather scatter)."""
     g = getattr(space, "grid", None)
-    if g is None or g[0] == "h1t":
+    if g is None:
         return None
     if g[0] == "l2":
         return ("l2",)
     p = space.order
+    if g[0] == "h1t":
+        rs = np.asarray(space.elem.nodes)  # [nd, 2] reference (r, s)
+        r, s = rs[:, 0], rs[:, 1]
+        # cells split along the SW-NE diagonal (mesh.make_cartesian_2d):
+        #   t=0 (v00, v10, v11): X = (r + s, s) in cell units
+        #   t=1 (v00, v11, v01): X = (r, r + s)
+        offs = np.stack([
+            np.stack([np.rint(p * (r + s)), np.rint(p * s)], axis=1),
+            np.stack([np.rint(p * r), np.rint(p * (r + s))], axis=1),
+        ]).astype(np.int64)  # [2, nd, (ai, aj)]
+        return ("h1t", g[1], g[2], offs, p)
     offs = np.rint(np.asarray(space.elem.nodes) * p).astype(np.int64)
     return ("h1", g[1], g[2], offs, p)
 
 
 def _node_slices(dims, offs_d, p):
     """Strided slice of the dof grid holding one element node for every
-    element, in element order (2D: [ny, nx]; 3D: [nx, ny, nz])."""
+    element (every cell of one orientation on triangles), in element order
+    (2D: [ny, nx]; 3D: [nx, ny, nz])."""
     if len(dims) == 2:
         nx, ny = dims
         ai, aj = int(offs_d[0]), int(offs_d[1])
@@ -141,50 +175,147 @@ def _node_slices(dims, offs_d, p):
     ), (nx, ny, nz)
 
 
-def _fast_gather(u, meta, vdim: int, nd: int):
-    """Element dofs [ne, nd, vdim] by reshape (L2) or strided slices of the
-    structured dof grid (H1)."""
+def _gather(u, meta, vdim: int, nd: int, edof):
+    """Element dofs [ne, nd, vdim]: a reshape (L2), strided slices of the
+    structured dof grid (h1, h1t), or the index gather by ``edof`` [ne, nd]
+    (no grid)."""
+    if meta is None:
+        return u.reshape(vdim, -1)[:, edof].permute(1, 2, 0)
     if meta[0] == "l2":
         return u.reshape(vdim, -1, nd).permute(1, 2, 0)
     _, dims, ndims, offs, p = meta
     ne = int(np.prod(dims))
     U = u.reshape((vdim,) + tuple(ndims))
-    cols = []
-    for d in range(nd):
-        sl, _ = _node_slices(dims, offs[d], p)
-        cols.append(U[(slice(None),) + sl].reshape(vdim, ne))
-    return torch.stack(cols, dim=0).permute(2, 0, 1)
+
+    def columns(offs_t):
+        return torch.stack([
+            U[(slice(None),) + _node_slices(dims, offs_t[d], p)[0]]
+            .reshape(vdim, ne)
+            for d in range(nd)
+        ], dim=0)  # [nd, vdim, ne]
+
+    if meta[0] == "h1t":
+        # one slice group per orientation, interleaved back into the
+        # mesh's e = 2*cell + t element order
+        both = torch.stack([columns(offs[0]), columns(offs[1])], dim=0)
+        return both.permute(3, 0, 1, 2).reshape(2 * ne, nd, vdim)
+    return columns(offs).permute(2, 0, 1)
 
 
-def _fast_scatter(re, meta, vdim: int, nd: int):
-    """Scatter-add element values [ne, nd, vdim] into the dof vector: the
-    exact adjoint of ``_fast_gather``.  Each element node adds into a
-    strided view of a zero dof grid; within one node's view no two
-    elements share a dof, so there are no atomics and the sum order is
-    fixed."""
+def _scatter(re, meta, vdim: int, nd: int, einv):
+    """Sum element values [ne, nd, vdim] into the dof vector: the exact
+    adjoint of ``_gather``.  On a grid each element node adds into a
+    strided view of a zero dof grid, and within one node's view no two
+    elements share a dof.  Without a grid every dof sums its element slots
+    through ``einv`` [nds, V] (``_edof_inverse``).  Neither uses atomics,
+    so the sum order is fixed."""
+    if meta is None:
+        flat = re.reshape(-1, vdim)  # [ne*nd, vdim]
+        padded = torch.cat([flat, flat.new_zeros(1, vdim)])
+        return padded[einv].sum(dim=1).T.reshape(-1)  # byNODES
     if meta[0] == "l2":
         return re.permute(2, 0, 1).reshape(-1)
     _, dims, ndims, offs, p = meta
     out = torch.zeros((vdim,) + tuple(ndims), dtype=re.dtype,
                       device=re.device)
-    for d in range(nd):
-        sl, shape = _node_slices(dims, offs[d], p)
-        out[(slice(None),) + sl].add_(re[:, d, :].T.reshape((vdim,) + shape))
+    if meta[0] == "h1t":
+        re4 = re.reshape(-1, 2, nd, vdim)  # e = 2*cell + t
+        groups = [(offs[t], re4[:, t]) for t in range(2)]
+    else:
+        groups = [(offs, re)]
+    for offs_t, vals in groups:
+        for d in range(nd):
+            sl, shape = _node_slices(dims, offs_t[d], p)
+            out[(slice(None),) + sl].add_(
+                vals[:, d, :].T.reshape((vdim,) + shape))
     return out.reshape(-1)
 
 
-def _elmat_from_h(B0s, B0t, H6):
-    """Dense element blocks A_e[(v,d),(w,k)] = B_s H B_t^T summed over qp
-    (element-shared shape tensors [nq, nd, sd])."""
-    return torch.einsum("qds,eqvswt,qkt->evdwk", B0s, H6, B0t)
+def _edof_inverse(edof: np.ndarray, nds: int) -> np.ndarray:
+    """Transpose of the element-dof map: [nds, V] indices into the
+    flattened [ne*nd] element values, V the largest dof valence, each row
+    the dof's slots in increasing order, padded with the sentinel ne*nd
+    (the zero row the scatter appends).  The same table as the JAX
+    package's ``_edof_inverse``."""
+    flat = np.asarray(edof, dtype=np.int64).reshape(-1)
+    count = np.bincount(flat, minlength=nds)
+    V = int(count.max()) if flat.size else 1
+    order = np.argsort(flat, kind="stable")  # slots grouped by dof
+    start = np.concatenate([[0], np.cumsum(count)[:-1]])
+    dof = flat[order]
+    inv = np.full((nds, V), flat.size, dtype=np.int64)
+    inv[dof, np.arange(flat.size) - start[dof]] = order
+    return inv
+
+
+# Element-varying shape tensors B [ne, nq, nd, sd] (physical shapes on an
+# unstructured mesh, where the GEMM factors are not installed) and
+# element-shared ones [1, nq, nd, sd] both broadcast over the element axis.
+
+
+def _x_from_u(B, ue):
+    """x = B^T u per qp: [ne, nq, vdim, sd]."""
+    return torch.einsum("eqds,edv->eqvs", B, ue)
+
+
+def _r_from_g(B, g):
+    """r_e = B g per element: [ne, nd, vdim] from g [ne, nq, vdim, sd]."""
+    return torch.einsum("eqds,eqvs->edv", B, g)
+
+
+def _diag_from_h(B, Hvv):
+    """Element diagonal d_e[d, v] = sum_q B[d, :] Hvv[:, :, v] B[d, :]."""
+    return torch.einsum("eqds,eqstv,eqdt->edv", B, Hvv, B)
+
+
+def _elmat_from_h(Bs, Bt, H6):
+    """Dense element blocks A_e[(v,d),(w,k)] = B_s H B_t^T summed over qp."""
+    return torch.einsum("eqds,eqvswt,eqkt->evdwk", Bs, H6, Bt)
+
+
+class _PullbackEnergy(ADFunction):
+    """The user's energy evaluated on physical per-qp inputs rebuilt from
+    reference-basis ones: physical gradients are invj^T times reference
+    gradients, with the per-qp inverse Jacobian ``p["_invj"]`` (row-major
+    J^-1[m, k]).  The shape tensor stays element-shared on an unstructured
+    mesh, so every shared-B GEMM factor applies, and the chain rule
+    H_ref = P^T H_phys P happens inside the differentiated point energy.
+    The JAX package's ``_PullbackEnergy``."""
+
+    def __init__(self, f, layout, dim: int):
+        super().__init__(f.n_input)
+        self.f = f
+        self.layout = layout  # per space: (offset, vdim, sd, columns)
+        self.dim = dim
+        self.params = f.params
+
+    def energy(self, x, p):
+        J = p["_invj"]
+        d = self.dim
+        out = []
+        for off, v, sd, cols in self.layout:
+            for c in range(v):
+                base = off + c * sd
+                k = 0
+                for kind in cols:
+                    if kind == "v":
+                        out.append(x[base + k])
+                        k += 1
+                        continue
+                    for kk in range(d):  # reference gradient -> physical
+                        acc = J[kk] * x[base + k]
+                        for mm in range(1, d):
+                            acc = acc + J[mm * d + kk] * x[base + k + mm]
+                        out.append(acc)
+                    k += d
+        return self.f.energy(torch.stack(out), p)
 
 
 # ---------------------------------------------------------------------------
 
 
 class ADBlockIntegrator(nn.Module):
-    """Domain integrator of a scalar energy over one or more FE spaces on a
-    structured (uniform-Jacobian) mesh.
+    """Domain integrator of a scalar energy over one or more FE spaces.
 
     Args:
         f: the ADFunction energy, or an ADVectorFunction F whose output
@@ -205,15 +336,28 @@ class ADBlockIntegrator(nn.Module):
            ``hessian_closed`` in ``residual`` / ``hess_state`` instead of
            AD (off by default, as in the JAX package).
 
-    ``tables`` (backed by registered buffers):
-        B:      tuple of [1, nq, nd_s, sd_s]
-        w:      [1, nq]
+    ``tables`` (backed by registered buffers; a leading 1 is an
+    element-shared table, ne an element-varying one):
+        B:      tuple of [1 | ne, nq, nd_s, sd_s]
+        w:      [1 | ne, nq]
         edof:   tuple of [ne, nd_s] int64
-        static: dict name -> [1, nq, k]
+        static: dict name -> [1 | ne, nq, k]; with the geometry pullback
+                also "_invj" [ne, nq, dim*dim], row-major inverse Jacobians
         field:  dict name -> phi [nq, nd_f] of each grid-function field
-                (its dofs are gathered on its own space's grid map)
+        field_edof: dict name -> edof [ne, nd_f] of its space (its dofs
+                are gathered on its own space's dof exchange)
+        einv:   dict s -> [nds_s, V] transpose of edof, for the spaces
+                without a dof grid (``_edof_inverse``)
         R, R0, D0: tuples of GEMM factors for x = B^T u, r = B g, diagonals
-        W, W0:  dicts "s_t" -> element-matrix contraction factors
+                (installed where every B is element-shared)
+        W, W0:  dicts "s_t" -> element-matrix contraction factors (empty
+                where a B is element-varying)
+
+    ``pullback`` is True where the mesh has no uniform Jacobian and the
+    energy is a scalar one on VALUE/GRAD inputs: ``f`` is then wrapped in
+    ``_PullbackEnergy`` and B holds reference shapes (the JAX package's
+    default; it has no other route for such an integrator but its A/B
+    switch).
     """
 
     def __init__(
@@ -245,11 +389,6 @@ class ADBlockIntegrator(nn.Module):
             if s.mesh is not mesh:
                 raise ValueError("all spaces must share one mesh")
         self.mesh = mesh
-        if not mesh.uniform_jacobian:
-            raise NotImplementedError(
-                "only structured quad/hex meshes are ported (the geometry "
-                "pullback for unstructured meshes is not)"
-            )
         if ir_order is None:
             ir_order = default_ad_order(max(s.order for s in spaces))
         self.ir = get_rule(mesh.geom, ir_order)
@@ -277,10 +416,16 @@ class ADBlockIntegrator(nn.Module):
             if s.vdim > 1 and not (m & ADEval.VECTOR):
                 raise ValueError("vdim > 1 requires ADEval.VECTOR")
         self._gridmeta = [_space_gridmeta(s) for s in spaces]
-        if any(m is None for m in self._gridmeta):
-            raise NotImplementedError(
-                "only lexicographic structured H1 and L2 spaces are ported"
-            )
+        self.pullback = not mesh.uniform_jacobian and not self.vector_fn and all(
+            not (m & (ADEval.DIV | ADEval.CURL | ADEval.QVALUE))
+            for m in modes)
+        if self.pullback:
+            layout = tuple(
+                (int(self.x_off[s]), self.vdim[s], self.sd[s],
+                 tuple(c for c, bit in (("v", ADEval.VALUE),
+                                        ("g", ADEval.GRAD)) if modes[s] & bit))
+                for s in range(len(spaces)))
+            self.f = _PullbackEnergy(f, layout, sdim)
         # runtime field parameters: name -> ("gf", vdim, ndof_scalar, nd,
         # gridmeta) or ("scalar", size); values come from ``fields``
         self.field_kinds: dict[str, tuple] = {}
@@ -290,14 +435,9 @@ class ADBlockIntegrator(nn.Module):
                 if sp.mesh is not mesh:
                     raise ValueError(
                         f"field {name!r} lives on a different mesh")
-                meta = _space_gridmeta(sp)
-                if meta is None:
-                    raise NotImplementedError(
-                        f"field {name!r}: only lexicographic structured H1 "
-                        "and L2 spaces are ported"
-                    )
                 self.field_kinds[name] = (
-                    "gf", sp.vdim, sp.ndof_scalar, sp.nd, meta)
+                    "gf", sp.vdim, sp.ndof_scalar, sp.nd,
+                    _space_gridmeta(sp))
             elif isinstance(coeff, ScalarFieldCoefficient):
                 self.field_kinds[name] = ("scalar", coeff.size)
         if tables is None:
@@ -314,11 +454,22 @@ class ADBlockIntegrator(nn.Module):
         def dev(a):
             return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
+        def index(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64),
+                                   device=device)
+
+        gf_b = gf
+        if self.pullback:
+            # reference shapes: B from an identity Jacobian, the geometry
+            # goes into the energy through _invj
+            eye = np.broadcast_to(np.eye(mesh.dim), gf.invj.shape)
+            gf_b = GeomFactors(xq=gf.xq, jac=eye, detj=gf.detj, invj=eye,
+                               w=gf.w)
         B_np = [
-            _dedup_elements(np.asarray(build_B(s, m, self.ir, gf)))
+            _dedup_elements(np.asarray(build_B(s, m, self.ir, gf_b)))
             for s, m in zip(spaces, modes)
         ]
-        static, field = {}, {}
+        static, field, field_edof = {}, {}, {}
         ctx = QPContext(gf.xq, ir=self.ir, mesh=mesh)
         for name, coeff in self.f.params.items():
             kind = self.field_kinds.get(name)
@@ -327,17 +478,26 @@ class ADBlockIntegrator(nn.Module):
                     _dedup_elements(np.asarray(coeff.eval_qp(ctx))))
             elif kind[0] == "gf":
                 field[name] = dev(coeff.space.elem.eval(self.ir.points))
+                field_edof[name] = index(coeff.space.edof)
+        if self.pullback:
+            static["_invj"] = dev(np.ascontiguousarray(gf.invj).reshape(
+                -1, self.nq, mesh.dim * mesh.dim))
         t = {
             "B": tuple(dev(b) for b in B_np),
             "w": dev(_dedup_elements(np.asarray(gf.w))),
-            "edof": tuple(
-                torch.as_tensor(np.asarray(s.edof, dtype=np.int64),
-                                device=device)
-                for s in spaces
-            ),
+            "edof": tuple(index(s.edof) for s in spaces),
             "static": static,
             "field": field,
+            "field_edof": field_edof,
+            "einv": {
+                s: index(_edof_inverse(sp.edof, sp.ndof_scalar))
+                for s, sp in enumerate(spaces) if self._gridmeta[s] is None
+            },
+            "W0": {},
+            "W": {},
         }
+        if any(b.shape[0] != 1 for b in B_np):
+            return t  # element-varying shapes: the einsum forms serve
         # GEMM forms of the contractions against the element-shared B:
         #   R_s  [nq*w_s, nde_s]       R[(q,a), i] = Bf[q, i, a]
         #   W_st [nq*w_s*w_t, nde_s*nde_t] = Bf_s (x) Bf_t   (A = Hflat @ W)
@@ -459,7 +619,8 @@ class ADBlockIntegrator(nn.Module):
                 phi = t["field"][name]
                 u = torch.as_tensor(fields[name], dtype=w.dtype,
                                     device=w.device)
-                ue = _fast_gather(u, meta, vdim, nd_f)  # [ne, nd, vdim]
+                ue = _gather(u, meta, vdim, nd_f,
+                             t["field_edof"][name])  # [ne, nd, vdim]
                 p[name] = torch.einsum("qd,edv->eqv", phi, ue)
             else:
                 v = torch.as_tensor(fields[name], dtype=w.dtype,
@@ -469,11 +630,25 @@ class ADBlockIntegrator(nn.Module):
 
     def gather(self, s: int, u):
         """Element dofs of block s: [ne, nd, vdim] (byNODES layout)."""
-        return _fast_gather(u, self._gridmeta[s], self.vdim[s], self.nd[s])
+        return _gather(u, self._gridmeta[s], self.vdim[s], self.nd[s],
+                       self.tables["edof"][s])
 
     def scatter(self, s: int, re):
-        """Scatter-add element values [ne, nd, vdim] into block-s dofs."""
-        return _fast_scatter(re, self._gridmeta[s], self.vdim[s], self.nd[s])
+        """Sum element values [ne, nd, vdim] into block-s dofs."""
+        return _scatter(re, self._gridmeta[s], self.vdim[s], self.nd[s],
+                        self.tables["einv"].get(s))
+
+    def node_sum(self, s: int, vals):
+        """Per-node values [ne, nd, *k] of block s summed over the elements
+        that share each scalar dof: [nds, *k] (the scatter's exchange, any
+        trailing shape)."""
+        ne, nd = vals.shape[:2]
+        k = tuple(vals.shape[2:])
+        flat = vals.reshape(ne, nd, -1)
+        width = flat.shape[-1]
+        out = _scatter(flat, self._gridmeta[s], width, nd,
+                       self.tables["einv"].get(s))
+        return out.reshape(width, -1).T.reshape((-1,) + k)
 
     def x_qp(self, ublocks):
         """Stacked per-qp input x [ne, nq, n_input] (x = B^T u per space,
@@ -489,9 +664,11 @@ class ADBlockIntegrator(nn.Module):
                 ue2 = ue.permute(0, 2, 1).reshape(ne * v, nd)
                 x = (ue2 @ t["R0"][s].T).reshape(ne, v, nq, sd)
                 x = x.permute(0, 2, 1, 3)  # [ne, nq, v, sd]
-            else:
+            elif "R" in t:
                 ue2 = ue.permute(0, 2, 1).reshape(ne, -1)  # [ne, nde]
                 x = ue2 @ t["R"][s].T  # [ne, nq*w] — one GEMM
+            else:
+                x = _x_from_u(t["B"][s], ue)
             xs.append(x.reshape(ne, nq, self.widths[s]))
         return torch.cat(xs, dim=-1)
 
@@ -506,8 +683,11 @@ class ADBlockIntegrator(nn.Module):
             gp = seg.reshape(ne, nq, v, sd).permute(0, 2, 1, 3)
             re = gp.reshape(ne * v, nq * sd) @ t["R0"][s]  # [ne*v, nd]
             return re.reshape(ne, v, nd).permute(0, 2, 1)
-        re = seg.reshape(ne, -1) @ t["R"][s]  # [ne, nde] — one GEMM
-        return re.reshape(ne, self.vdim[s], self.nd[s]).permute(0, 2, 1)
+        if "R" in t:
+            re = seg.reshape(ne, -1) @ t["R"][s]  # [ne, nde] — one GEMM
+            return re.reshape(ne, self.vdim[s], self.nd[s]).permute(0, 2, 1)
+        return _r_from_g(
+            t["B"][s], seg.reshape(ne, nq, self.vdim[s], self.sd[s]))
 
     # ------------------------------------------------------------------
     def energy(self, ublocks, fields=None):
@@ -597,8 +777,11 @@ class ADBlockIntegrator(nn.Module):
             blk = Hq[..., o:o + self.widths[s], o:o + self.widths[s]]
             H6 = blk.reshape(ne, nq, v, sd, v, sd)
             Hvv = torch.diagonal(H6, dim1=2, dim2=4)  # [ne,nq,sd,sd,vdim]
-            Hp = Hvv.permute(0, 4, 1, 2, 3).reshape(ne * v, nq * sd * sd)
-            D = (Hp @ t["D0"][s]).reshape(ne, v, nd).permute(0, 2, 1)
+            if "D0" in t:
+                Hp = Hvv.permute(0, 4, 1, 2, 3).reshape(ne * v, nq * sd * sd)
+                D = (Hp @ t["D0"][s]).reshape(ne, v, nd).permute(0, 2, 1)
+            else:
+                D = _diag_from_h(t["B"][s], Hvv)
             out.append(self.scatter(s, D))
         return out
 
@@ -680,7 +863,7 @@ class ADBlockIntegrator(nn.Module):
         H6 = blk.reshape(
             ne, nq, self.vdim[s], self.sd[s], self.vdim[t_], self.sd[t_]
         )
-        A = _elmat_from_h(t["B"][s][0], t["B"][t_][0], H6)
+        A = _elmat_from_h(t["B"][s], t["B"][t_], H6)
         return A.reshape(ne, nde_s, nde_t)
 
     def assemble_dense_block(self, Hq, s: int, t_: int):

@@ -1,6 +1,7 @@
 """Vector linear elasticity (ex3): LinearElasticityEnergy with GRAD|VECTOR
 mode, unit body force, clamped on boundary attribute 4 (the left side),
-single linear solve.  Structured square/cube meshes."""
+single linear solve.  Squares and cubes, or with ``geom`` "tri" (2D) or
+"tet" (3D, Kuhn-split cubes) simplices."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from ..ad import LinearElasticityEnergy
 from ..adeval import ADEval
 from ..fespace import FESpace
 from ..forms import LinearForm, NonlinearForm
+from ..quadrature import TETRAHEDRON, TRIANGLE
 from ..solvers import NewtonOptions, newton
 
 
@@ -32,12 +34,20 @@ def build(
     mu: float = 1.0,
     n0: int = 10,
     dim: int = 2,
+    geom: str | None = None,
     *,
     device="cuda",
     dtype: torch.dtype = torch.float64,
 ) -> Problem:
-    m = (M.make_cartesian_2d(n0, n0) if dim == 2
-         else M.make_cartesian_3d(n0, n0, n0)).uniform_refine(ref_levels)
+    if dim == 2:
+        g = TRIANGLE if geom in ("tri", TRIANGLE) else None
+        m = (M.make_cartesian_2d(n0, n0, g) if g
+             else M.make_cartesian_2d(n0, n0))
+    else:
+        g = TETRAHEDRON if geom in ("tet", TETRAHEDRON) else None
+        m = (M.make_cartesian_3d(n0, n0, n0, geom=g) if g
+             else M.make_cartesian_3d(n0, n0, n0))
+    m = m.uniform_refine(ref_levels)
     fes = FESpace(m, order, vdim=dim)
     nlf = NonlinearForm(fes, device=device, dtype=dtype)
     nlf.add_ad_integrator(
@@ -54,8 +64,10 @@ def build(
 
 
 def solve(order: int = 1, ref_levels: int = 3, lin_solver: str = "cg",
-          dim: int = 2, *, device="cuda", dtype: torch.dtype = torch.float64):
-    pb = build(order, ref_levels, dim=dim, device=device, dtype=dtype)
+          dim: int = 2, geom: str | None = None, *, device="cuda",
+          dtype: torch.dtype = torch.float64):
+    pb = build(order, ref_levels, dim=dim, geom=geom, device=device,
+               dtype=dtype)
     opts = NewtonOptions(
         abs_tol=1e-10, max_iter=3, lin_solver=lin_solver, lin_tol=1e-14,
         lin_maxiter=20000,

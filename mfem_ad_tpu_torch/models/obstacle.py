@@ -5,7 +5,9 @@ PG loop and its lambda-increment stopping rule.
 
 The default solver is the exact Schur elimination of the L2 latent with
 CG on the condensed primal system, preconditioned by the alpha-shifted
-hp-GMG on the primal diffusion block (``_primal_gmg``)."""
+hp-GMG on the primal diffusion block (``_primal_gmg``).  On tetrahedra
+(``dim=3, geom="tet"``) there is no dof grid for the GMG, and the
+condensed CG takes its Jacobi diagonal."""
 
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from ..forms import BlockNonlinearForm, LinearForm, NonlinearForm
 from ..integrator import ADBlockIntegrator
 from ..multigrid import GMG, PGSchurGMG, build_hp_hierarchy
 from ..pg import ADPGFunctional, FermiDiracEntropy, PGSolver, PGStepSizeRule
+from ..quadrature import TETRAHEDRON
 from ..solvers import NewtonOptions
 
 
@@ -61,15 +64,15 @@ def build(order: int = 2, ref_levels: int = 3, n0: int = 10,
           geom: str | None = None, *, device="cuda",
           dtype: torch.dtype = torch.float64) -> Problem:
     """The LVPP obstacle form on n0 x n0 (x n0) cells refined
-    ``ref_levels`` times; dim 3 runs on hexes."""
-    if geom is not None:
-        raise NotImplementedError(
-            f"geom={geom!r}: the obstacle problem on tetrahedra waits for "
-            "the unstructured meshes (ROADMAP A4); the port runs it on "
-            "quads (dim 2) and hexes (dim 3)"
-        )
-    m = (M.make_cartesian_3d(n0, n0, n0) if dim == 3
-         else M.make_cartesian_2d(n0, n0)).uniform_refine(ref_levels)
+    ``ref_levels`` times; dim 3 runs on hexes, or with ``geom="tet"`` on
+    Kuhn-split tetrahedra (Bey refinement)."""
+    if dim == 3:
+        g = TETRAHEDRON if geom in ("tet", TETRAHEDRON) else None
+        m = (M.make_cartesian_3d(n0, n0, n0, geom=g) if g
+             else M.make_cartesian_3d(n0, n0, n0))
+    else:
+        m = M.make_cartesian_2d(n0, n0)
+    m = m.uniform_refine(ref_levels)
     h1 = FESpace(m, order + 1)
     l2 = FESpace(m, order - 1, L2)
 
@@ -161,7 +164,7 @@ def solve(
                dtype=dtype)
     rule = PGStepSizeRule(rule_type, alpha0, max_alpha, ratio, ratio2)
     precond = None
-    if lin_solver == "schur" and gmg:
+    if lin_solver == "schur" and gmg and geom is None:
         precond = _primal_gmg(order, ref_levels, n0, dim=dim, device=device,
                               dtype=dtype).as_preconditioner()
     elif lin_solver not in ("dense", "schur"):

@@ -1,7 +1,8 @@
 """Poisson via the AD diffusion energy (ex1).
 
 -Δu = 2π² sin(πx) sin(πy) on [0,1]², u = 0 on the boundary;
-exact solution sin(πx) sin(πy).
+exact solution sin(πx) sin(πy).  ``geom`` "square" (quads) or "triangle"
+(each cell split along its SW-NE diagonal).
 """
 
 from __future__ import annotations
@@ -36,9 +37,10 @@ class Problem:
     rhs: torch.Tensor
 
 
-def build(order: int = 1, ref_levels: int = 1, n0: int = 10, *, device="cuda",
+def build(order: int = 1, ref_levels: int = 1, n0: int = 10,
+          geom: str = "square", *, device="cuda",
           dtype: torch.dtype = torch.float64) -> Problem:
-    m = M.make_cartesian_2d(n0, n0).uniform_refine(ref_levels)
+    m = M.make_cartesian_2d(n0, n0, geom).uniform_refine(ref_levels)
     fes = FESpace(m, order)
     nlf = NonlinearForm(fes, device=device, dtype=dtype)
     nlf.add_ad_integrator(DiffusionEnergy(m.dim), ADEval.GRAD)
@@ -50,8 +52,9 @@ def build(order: int = 1, ref_levels: int = 1, n0: int = 10, *, device="cuda",
 
 
 def solve(order: int = 1, ref_levels: int = 1, lin_solver: str = "cg",
-          n0: int = 10, *, device="cuda", dtype: torch.dtype = torch.float64):
-    pb = build(order, ref_levels, n0, device=device, dtype=dtype)
+          n0: int = 10, geom: str = "square", *, device="cuda",
+          dtype: torch.dtype = torch.float64):
+    pb = build(order, ref_levels, n0, geom, device=device, dtype=dtype)
     opts = NewtonOptions(
         abs_tol=1e-10, max_iter=3, lin_solver=lin_solver, lin_tol=1e-14,
         preconditioner="jacobi" if lin_solver == "cg" else None,

@@ -46,6 +46,7 @@ from .fused_jacobian import (
     field_refusal,
     full_w_operands,
     full_w_refusal,
+    geometry_refusal,
     kernel_inputs,
     supports_fused,
 )
@@ -168,6 +169,9 @@ def ad_kernel_route_refusal(intg) -> str | None:
                 "energy to differentiate")
     if intg.field_kinds:
         return field_refusal(intg)
+    why = geometry_refusal(intg)
+    if why is not None:
+        return why
     if not _tables_on_cuda(intg):
         return "the AD kernel runs on CUDA tables only"
     if not supports_fused(intg):

@@ -87,6 +87,23 @@ def field_refusal(intg) -> str:
             "not kernel inputs: field-backed integrators take two-stage")
 
 
+def geometry_refusal(intg) -> str | None:
+    """The refusal of both kernel routes for element-varying tables, or
+    None: the kernels take one shape tensor, one set of quadrature weights
+    and element-shared static parameters, as the JAX package's
+    ``supports_fused`` does.  Unstructured meshes (the pullback's per-
+    element ``_invj``, element-varying w) and physical element-varying B
+    take two-stage."""
+    t = intg.tables
+    varying = [k for k, v in t["static"].items() if v.shape[0] != 1]
+    varying += ["w"] if t["w"].shape[0] != 1 else []
+    varying += ["B"] if any(b.shape[0] != 1 for b in t["B"]) else []
+    if not varying:
+        return None
+    return (f"element-varying geometry ({', '.join(varying)}): "
+            "unstructured integrators take two-stage")
+
+
 def kernel_route_refusal(intg) -> str | None:
     """Why the closed-entries kernel the tables select (blocked-W0 where
     ``uses_blocked_kernel``, else full-W) cannot assemble this integrator's
@@ -97,6 +114,9 @@ def kernel_route_refusal(intg) -> str | None:
                 "Hessian entries: the state is the Jacobian of F")
     if intg.field_kinds:
         return field_refusal(intg)
+    why = geometry_refusal(intg)
+    if why is not None:
+        return why
     if not _tables_on_cuda(intg):
         return "the kernel runs on CUDA tables only"
     if intg.f.hessian_closed_entries is None:

@@ -2,9 +2,11 @@
 MFEM-NewtonSolver-style Newton.
 
 PyTorch counterpart of ``mfem_ad_tpu.solvers`` (``cg``, ``gmres``,
-``minres``, the Schur elimination of the LVPP saddle system
-``schur_solve`` / ``make_pg_schur_solver``, ``newton`` with ``lin_solver``
-"cg", "gmres", "minres", "dense", "schur" or a callable).  ``newton``
+``minres``, the directions of the LVPP saddle system: the exact Schur
+elimination of an L2 latent ``schur_solve`` / ``make_pg_schur_solver``,
+and for any other latent ``lumped_schur_solve``, LDU-preconditioned FGMRES
+with a GMG or block-diagonal MINRES without one; ``newton`` with
+``lin_solver`` "cg", "gmres", "minres", "dense", "schur" or a callable).  ``newton``
 solves ``form.mult(x, fields) = b``: it solves J c = r with r = mult(x) -
 b, updates x <- x - d c, and converges on ||r|| <= max(rel_tol*||r0||,
 abs_tol).
@@ -13,6 +15,8 @@ abs_tol).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+
+import os
 
 import numpy as np
 import torch
@@ -257,19 +261,47 @@ def minres(matvec, b, x0=None, M=None, tol=1e-10, maxiter=1000,
 # ---------------------------------------------------------------------------
 
 
-def _schur_arrays(form, state, reg: float, jacobi: bool):
+def _lumped_latent(form, intg, Hq, reg: float, out: dict):
+    """The node-block lumped latent of a latent space that couples across
+    elements (ex5's H1^dim): per scalar node the vdim x vdim diagonal block
+    of D (scalar lumping is badly wrong for anisotropic entropies: the
+    Hellinger E*'' goes rank-deficient along psi near saturation) and its
+    regularized inverse ``Dblk_inv`` [nds, vdim, vdim].  The node sums go
+    through the latent space's own dof exchange, so their order is
+    fixed."""
+    lb = len(form.offsets) - 2
+    sp_l = form.spaces[lb]
+    vl, ndl = sp_l.vdim, sp_l.nd
+    De = -intg.element_matrices(Hq, lb, lb)
+    ne = De.shape[0]
+    De4 = De.reshape(ne, vl, ndl, vl, ndl)
+    node_blocks = torch.diagonal(De4, dim1=2, dim2=4).permute(0, 3, 1, 2)
+    Dblk = intg.node_sum(lb, node_blocks)  # [nds, vl, vl]
+    eye = torch.eye(vl, dtype=De.dtype, device=De.device)
+    tr = torch.diagonal(Dblk, dim1=1, dim2=2).sum(-1) / vl
+    shift = torch.clamp(reg * tr.abs().max(), min=1e-30)
+    out["Dblk_inv"] = torch.linalg.inv(Dblk + shift * eye)
+
+
+def _schur_arrays(form, state, reg: float, jacobi: bool,
+                  lumped: bool = False):
     """The array pieces of the Schur reduction, once per Newton direction:
-    the inverse latent element blocks ``De_inv`` and, with ``jacobi``, the
-    condensed Jacobi diagonal ``safe`` and the reaction diagonal
-    ``dshift`` = diag(C D^-1 C^T) on the primal block (zero at essential
-    dofs), the shift of the V-cycle."""
+    the inverse latent element blocks ``De_inv`` (an L2 latent) or, with
+    ``lumped``, the node-block arrays of ``_lumped_latent``; with
+    ``jacobi``, the condensed Jacobi diagonal ``safe`` and the reaction
+    diagonal ``dshift`` = diag(C D^-1 C^T) on the primal block (zero at
+    essential dofs), the shift of the V-cycle (D^-1 the node-block
+    inverse when ``lumped``)."""
     intg, Hq = form.integrators[0], state[0]
     t = intg.tables
-    off = form.offsets
-    lb = len(off) - 2
-    ub = lb - 1
-    n0 = int(off[lb])
+    lb = len(form.offsets) - 2
     out = {}
+    if lumped:
+        _lumped_latent(form, intg, Hq, reg, out)
+        if jacobi:
+            _schur_jacobi(form, intg, Hq, torch.abs(form.grad_diag(state)),
+                          out)
+        return out
     De = -intg.element_matrices(Hq, lb, lb)  # [ne, ndl, ndl]
     ndl = De.shape[1]
     # E*'' underflows where the mirror map saturates (the active set),
@@ -286,21 +318,36 @@ def _schur_arrays(form, state, reg: float, jacobi: bool):
     Me = torch.einsum("eqd,eqk,eq->edk", Bl, Bl, t["w"])
     out["De_inv"] = torch.linalg.inv(De + (reg * dmax) * eye + 1e-20 * Me)
     if jacobi:
-        # diag(S) = diag(A) + diag(C D^-1 C^T); the second term dominates
-        # as alpha grows (D ~ E*''/alpha -> 0 on the active set)
-        d_full = torch.abs(form.grad_diag(state))
-        ess_u = form.ess_mask[:n0]
-        Ce = intg.element_matrices(Hq, ub, lb)  # [ne, nde_u, ndl]
-        ne = Ce.shape[0]
-        sp_u = form.spaces[ub]
-        dS = torch.einsum("eij,ejk,eik->ei", Ce, out["De_inv"], Ce)
-        # byNODES flat rows (v, d) = v*nd + d -> [ne, nd, vdim] to scatter
-        dS3 = dS.reshape(ne, sp_u.vdim, sp_u.nd).permute(0, 2, 1)
-        dS_nodes = intg.scatter(ub, dS3)
-        d = d_full[:n0] + dS_nodes
-        out["dshift"] = torch.where(ess_u, 0.0, dS_nodes)
-        out["safe"] = torch.where(d < 1e-30, 1.0, d)
+        _schur_jacobi(form, intg, Hq, torch.abs(form.grad_diag(state)), out)
     return out
+
+
+def _schur_jacobi(form, intg, Hq, d_full, out: dict):
+    """diag(S) = diag(A) + diag(C D^-1 C^T) as ``safe``, and the reaction
+    diagonal diag(C D^-1 C^T) (zero at essential dofs) as ``dshift``; the
+    second term dominates as alpha grows (D ~ E*''/alpha -> 0 on the
+    active set)."""
+    t = intg.tables
+    lb = len(form.offsets) - 2
+    ub = lb - 1
+    n0 = int(form.offsets[lb])
+    Ce = intg.element_matrices(Hq, ub, lb)  # [ne, nde_u, nde_l]
+    ne = Ce.shape[0]
+    sp_u = form.spaces[ub]
+    if "Dblk_inv" in out:
+        # node-block inverse; Ce's columns are (w, d) = w*ndl + d byNODES
+        sp_l = form.spaces[lb]
+        Ce4 = Ce.reshape(ne, Ce.shape[1], sp_l.vdim, sp_l.nd)
+        be = out["Dblk_inv"][t["edof"][lb]]  # [ne, ndl, vl, vl]
+        dS = torch.einsum("eivd,edvw,eiwd->ei", Ce4, be, Ce4)
+    else:
+        dS = torch.einsum("eij,ejk,eik->ei", Ce, out["De_inv"], Ce)
+    # byNODES flat rows (v, d) = v*nd + d -> [ne, nd, vdim] to scatter
+    dS3 = dS.reshape(ne, sp_u.vdim, sp_u.nd).permute(0, 2, 1)
+    dS_nodes = intg.scatter(ub, dS3)
+    d = d_full[:n0] + dS_nodes
+    out["dshift"] = torch.where(form.ess_mask[:n0], 0.0, dS_nodes)
+    out["safe"] = torch.where(d < 1e-30, 1.0, d)
 
 
 def schur_solve(form, state, r, tol: float, maxiter: int, reg: float = 1e-6,
@@ -322,13 +369,14 @@ def schur_solve(form, state, r, tol: float, maxiter: int, reg: float = 1e-6,
     Jacobian remove the O(reg) direction error.
 
     Returns (dx, CG iterations summed over the solve and its refinement
-    passes).  A latent space that is not L2 needs the lumped Schur
-    complement, which is not ported.
+    passes).  A latent space that is not L2 couples across elements and
+    takes ``lumped_schur_solve`` instead (``newton`` chooses by the
+    latent space).
     """
     if form.spaces[-1].fe_type != "L2":
-        raise NotImplementedError(
-            "the lumped Schur direction for a non-L2 latent (ex5's H1 "
-            "latent) is not ported yet (ROADMAP A5)"
+        raise ValueError(
+            "schur_solve eliminates an element-local (L2) latent; a "
+            f"{form.spaces[-1].fe_type} latent takes lumped_schur_solve"
         )
     if fp is not None and not hasattr(fp, "apply_primal"):
         raise ValueError(
@@ -422,6 +470,454 @@ def make_pg_schur_solver(latent_block: int = 1, tol: float = 1e-12,
 
 
 # ---------------------------------------------------------------------------
+# The lumped-latent saddle direction (a latent that couples across
+# elements: ex5's H1^dim latent)
+# ---------------------------------------------------------------------------
+
+
+# the reference's cap of the dense dual-Schur factor (latent dofs); above
+# it Sigma^-1 is applied matrix-free (Woodbury)
+SIGMA_DIRECT_MAX = 16384
+# inner tolerances and budgets of the LDU preconditioner: A^-1 by CG, and
+# Sigma^-1 by CG (its budget per mode: the dense factor, Woodbury)
+LDU_A_TOL, LDU_A_MAX = 1e-5, 64
+LDU_S_TOL, LDU_S_MAX = 3e-3, {"direct": 50, "wb": 60}
+LDU_RESTART = 32
+
+
+def _lumped_ops(form, state, arrays):
+    """The operators of the lumped direction: the Jacobian action ``mv``,
+    the lumped primal Schur complement ``S`` = A + C D~^-1 C^T with the
+    node-block D~, its application ``Dinv`` and the primal block size."""
+    lb = len(form.offsets) - 2
+    n0 = int(form.offsets[lb])
+    n1 = form.ndof - n0
+    sp_l = form.spaces[lb]
+    vl, nds_l = sp_l.vdim, sp_l.ndof_scalar
+    Dblk_inv = arrays["Dblk_inv"]
+
+    def Dinv(w):  # byNODES layout: dof = v*nds + node
+        z = torch.einsum("nvw,wn->vn", Dblk_inv, w.reshape(vl, nds_l))
+        return z.reshape(-1)
+
+    def mv(v):
+        return form.grad_mult(state, v)
+
+    def S(v):
+        Jv = mv(torch.cat([v, v.new_zeros(n1)]))
+        Cw = mv(torch.cat([v.new_zeros(n0), Dinv(Jv[n0:])]))[:n0]
+        return Jv[:n0] + Cw
+
+    return mv, S, Dinv, n0
+
+
+def _lumped_minres(form, state, r, arrays, tol: float):
+    """Block-diagonal MINRES on the saddle Jacobian, preconditioned by
+    blockdiag(S~^-1, D~^-1) with S~^-1 a bounded inner Jacobi-CG (rel
+    1e-8, at most 200 iterations) and at most 200 outer iterations: the
+    direction without a GMG.  Returns (dx, MINRES iterations)."""
+    mv, S, Dinv, n0 = _lumped_ops(form, state, arrays)
+    safe = arrays["safe"]
+
+    def Mblock(rr):
+        zu = cg(S, rr[:n0], M=lambda v: v / safe, tol=1e-8, maxiter=200)[0]
+        return torch.cat([zu, Dinv(rr[n0:])])
+
+    return minres(mv, r, M=Mblock, tol=tol, maxiter=200)
+
+
+def _sigma_direct_enabled(opts, fp, nl: int) -> bool:
+    """The dense dual-Schur factor serves the LDU direction when
+    ``opts.sigma_direct`` is "auto", a primal GMG is there and the latent
+    has at most ``SIGMA_DIRECT_MAX`` dofs."""
+    if not getattr(opts, "sigma_direct", "auto"):
+        return False
+    if fp is None or not hasattr(fp, "apply_primal"):
+        return False
+    return nl <= SIGMA_DIRECT_MAX
+
+
+def _inv_f32(S):
+    """f32 inverse of a symmetric (near-)SPD matrix, symmetrized: a
+    preconditioner needs a few digits, and the Krylov solve around it
+    supplies the rest."""
+    out = torch.linalg.inv(S.to(torch.float32))
+    out = out + out.T
+    return out.mul_(0.5)
+
+
+def _free_bytes(device) -> int:
+    """Memory the form's device can still give: the card's free memory
+    plus what PyTorch's allocator holds unused, or the host's available
+    memory for a CPU form."""
+    if device.type == "cuda":
+        free = torch.cuda.mem_get_info(device)[0]
+        return free + (torch.cuda.memory_reserved(device)
+                       - torch.cuda.memory_allocated(device))
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def sigma_gemm_fits(form, n0: int, nl: int) -> bool:
+    """The GEMM K builder's peak (f32: the dense A, its LU and inverse, the
+    coupling and its product, K) against three quarters of the memory the
+    form's device has free: the budget decides up front which builder
+    runs."""
+    need = 4.0 * (3.0 * n0 * n0 + 2.0 * n0 * nl + nl * nl)
+    return need < 0.75 * _free_bytes(form.device)
+
+
+def _dense_AC(form, state, alpha: float, n0: int, nl: int):
+    """The dense primal block A (essential rows and columns -> identity)
+    and the alpha-scaled coupling alpha*C, f32 on the form's device, as
+    ``grad_mult`` eliminates the essential dofs."""
+    lb = len(form.spaces) - 1
+    off = form.offsets
+    dev = form.device
+    A = torch.zeros((n0, n0), dtype=torch.float32, device=dev)
+    Cm = torch.zeros((n0, nl), dtype=torch.float32, device=dev)
+    for intg, Hq in zip(form.integrators, state):
+        for s_ in range(lb):
+            r0, r1 = int(off[s_]), int(off[s_ + 1])
+            for t_ in range(lb):
+                A[r0:r1, int(off[t_]):int(off[t_ + 1])] += (
+                    intg.assemble_dense_block(Hq, s_, t_))
+            Cm[r0:r1] += intg.assemble_dense_block(Hq, s_, lb)
+    pe, le = form.ess_mask[:n0], form.ess_mask[n0:]
+    A[pe] = 0.0
+    A[:, pe] = 0.0
+    A[pe, pe] = 1.0
+    Cm[pe] = 0.0
+    Cm[:, le] = 0.0
+    return A, Cm.mul_(alpha)
+
+
+def sigma_K_gemm(form, state, alpha: float, n0: int, nl: int,
+                 cache: dict):
+    """K = (alpha C)^T A^-1 (alpha C) from the dense blocks (two GEMMs);
+    keeps A^-1 (f32) and the invariance witness (one column of A and of
+    alpha C) in ``cache``."""
+    A, Ca = _dense_AC(form, state, alpha, n0, nl)
+    j = int((~form.ess_mask[:n0]).nonzero()[0])  # first free primal dof
+    cache["chk"] = (j, A[:, j].clone(), Ca[j].clone())
+    Ainv = _inv_f32(A)
+    del A
+    K = Ca.T @ (Ainv @ Ca)
+    cache["Ainv"] = Ainv
+    K = K + K.T
+    return K.mul_(0.5)
+
+
+def sigma_K_columns(form, fp, state, alpha: float, n0: int, cols):
+    """Columns ``cols`` of K = (alpha C)^T V_A (alpha C), V_A one V-cycle
+    on the primal block, through the Jacobian action: [len(cols), nl]."""
+    nl = form.ndof - n0
+    out = []
+    for j in cols:
+        w = torch.zeros(form.ndof, dtype=form.dtype, device=form.device)
+        w[n0 + j] = 1.0
+        z = fp.apply_primal(form.grad_mult(state, w)[:n0])
+        t3 = form.grad_mult(state, torch.cat([z, z.new_zeros(nl)]))
+        out.append((alpha * alpha) * t3[n0:])
+    return torch.stack(out)
+
+
+def sigma_K_matvec(form, fp, state, alpha: float, n0: int, nl: int):
+    """K built column by column through the Jacobian action and the
+    V-cycle (no dense primal block): the builder where the GEMM one does
+    not fit (``sigma_gemm_fits``)."""
+    K = sigma_K_columns(form, fp, state, alpha, n0, range(nl)).T
+    return 0.5 * (K + K.T)
+
+
+def _sigma_drift(form, fp, state, alpha: float, n0: int, nl: int,
+                 cache: dict) -> bool:
+    """True when the cached K no longer matches the live Jacobian (a
+    nonlinear primal energy or coupling): one fresh column against the
+    cache's witness."""
+    if cache["mode"] == "gemm":
+        j, colA, colC = cache["chk"]
+        ej = torch.zeros(form.ndof, dtype=form.dtype, device=form.device)
+        ej[j] = 1.0
+        col = form.grad_mult(state, ej)
+        dA = torch.linalg.vector_norm(col[:n0] - colA)
+        dC = torch.linalg.vector_norm(alpha * col[n0:] - colC)
+        den = max(float(torch.linalg.vector_norm(colA)),
+                  float(torch.linalg.vector_norm(colC)), 1e-30)
+        # 1e-5: above the f32 rounding of the witness, far below any real
+        # drift of the state
+        return float(dA + dC) > 1e-5 * den
+    j = nl // 2
+    col = sigma_K_columns(form, fp, state, alpha, n0, [j])[0]
+    ref = cache["K"][:, j]
+    den = max(float(torch.linalg.vector_norm(ref)), 1e-30)
+    return float(torch.linalg.vector_norm(col - ref)) > 1e-8 * den
+
+
+def _sigma_direct_update(form, fp, state, alpha: float, n0: int, nl: int):
+    """Build or refresh the dense inverse of the scaled dual Schur
+    complement Sigma(alpha) = alpha^2 D + K, K = (alpha C)^T A^-1
+    (alpha C), cached on ``fp`` across the PG loop.
+
+    K is alpha- and state-invariant for LVPP functionals with a linear
+    primal-latent coupling (C is 1/alpha times a constant mixed mass), so
+    it is paid once per run and each refresh only re-assembles alpha^2 D
+    and re-inverts.  Every refresh checks the invariance on one fresh
+    column; drift makes K rebuild on every refresh from then on.
+
+    K's builder: ``sigma_K_gemm`` (dense A and alpha*C, A^-1 kept for the
+    LDU apply) where ``sigma_gemm_fits``, else ``sigma_K_matvec``.
+    Refresh policy (lazy): alpha moved more than 4x since the factor was
+    built, or the previous direction took more than 12 FGMRES
+    iterations; the Sigma-CG around the factor keeps every direction
+    right whatever its staleness.  Returns the cache dict (``Sinv``, and
+    ``Ainv`` in gemm mode).  The profiling phases "ldu/sigma_K" and
+    "ldu/sigma_refresh" count and time the builds and refreshes."""
+    cache = getattr(fp, "_sigma_cache", None)
+    if cache is None or cache.get("nl") != nl:
+        cache = fp._sigma_cache = {"nl": nl}
+
+    def build_K():
+        with profiling.phase("ldu/sigma_K", sync=form.ess_mask):
+            if cache["mode"] == "gemm":
+                return sigma_K_gemm(form, state, alpha, n0, nl, cache)
+            return sigma_K_matvec(form, fp, state, alpha, n0, nl)
+
+    if "K" not in cache:
+        cache["mode"] = "gemm" if sigma_gemm_fits(form, n0, nl) else "matvec"
+        cache["K"] = build_K()
+        cache["k_dynamic"] = False
+    a_prev = cache.get("alpha")
+    a_ratio = (max(alpha, a_prev) / max(min(alpha, a_prev), 1e-300)
+               if a_prev else np.inf)
+    if not ("Sinv" not in cache or a_ratio > 4.0
+            or cache.get("outer_prev", 0) > 12):
+        return cache
+    with profiling.phase("ldu/sigma_refresh", sync=form.ess_mask):
+        _sigma_refresh(form, fp, state, alpha, n0, nl, cache, build_K)
+    return cache
+
+
+def _sigma_refresh(form, fp, state, alpha, n0, nl, cache, build_K):
+    """Re-assemble alpha^2 D, add K (rebuilt first where it drifted) and
+    re-invert: the refresh of ``_sigma_direct_update``."""
+    if cache["k_dynamic"] or _sigma_drift(form, fp, state, alpha, n0, nl,
+                                          cache):
+        cache["k_dynamic"] = True
+        cache["K"] = build_K()
+    lb = len(form.offsets) - 2
+    D = -form.integrators[0].assemble_dense_block(state[0], lb, lb)
+    le = form.ess_mask[n0:]
+    if cache["mode"] == "gemm":
+        S = ((alpha * alpha) * D).to(torch.float32) + cache["K"]
+        keep = (~le).to(S.dtype)
+        S = S * keep[:, None] * keep[None, :]
+        S = 0.5 * (S + S.T)
+        dmax = torch.diagonal(S).abs().max()
+        S.diagonal().add_(le.to(S.dtype) + 1e-14 * dmax)
+    else:
+        S = (alpha * alpha) * D + cache["K"]
+        S[le] = 0.0
+        S[:, le] = 0.0
+        S[le, le] = 1.0
+        S = 0.5 * (S + S.T)
+        S.diagonal().add_(1e-14 * torch.diagonal(S).abs().max())
+    cache["Sinv"] = _inv_f32(S)
+    cache["alpha"] = alpha
+
+
+def _ldu_fgmres(form, opts, fp, state, r, arrays, alpha: float):
+    """Flexible GMRES on the alpha-scaled saddle Jacobian with the inexact
+    block-LDU preconditioner
+
+        J = [[I, 0], [C^T A^-1, I]] [[A, 0], [0, -Sigma]]
+            [[I, A^-1 C], [0, I]],      Sigma = D + C^T A^-1 C,
+
+    applied as zu' = A^-1 ru; zp = -Sigma^-1 (rp - C^T zu');
+    zu = A^-1 (ru - C zp), with
+      - A^-1: CG on the primal block preconditioned by V_A (rel 1e-5, at
+        most 64 iterations), V_A the dense f32 A^-1 in direct mode (where
+        it was built), else one V-cycle;
+      - Sigma^-1: CG on w -> D w + C^T V_A (C w) (rel 3e-3), preconditioned
+        in one of the two modes a ``PGSchurGMG`` takes: "direct", the dense
+        inverse of Sigma (``_sigma_direct_update``; at most 50
+        iterations), wherever ``_sigma_direct_enabled``; else "wb", the
+        Woodbury identity (D~ + C^T A^-1 C)^-1 = D~^-1 - D~^-1 C^T S~^-1 C
+        D~^-1 with one shifted V-cycle for S~^-1 (at most 60).
+
+    The system is scaled by Lam = blockdiag(I, alpha I), so every block is
+    O(1) and the residual tolerance ``opts.lin_tol`` measures the
+    multiplier's accuracy; dpsi = alpha * zhat_p.  Restarts every 32
+    iterations; CGS2 Arnoldi with the Hessenberg matrix on the host: each
+    Gram-Schmidt pass is one device GEMV, each iteration one copy to the
+    host.
+    Block-diagonal preconditioners floor MINRES on this system as alpha
+    grows; this one keeps the outer count flat.
+
+    Returns (dx, FGMRES iterations); the profiling phase
+    "ldu/fgmres_<mode>" counts and times the directions of each mode."""
+    n0 = int(form.offsets[len(form.offsets) - 2])
+    nl = form.ndof - n0
+    sp_l = form.spaces[-1]
+    vl, nds_l = sp_l.vdim, sp_l.ndof_scalar
+    tol = float(opts.lin_tol)
+    budget = int(opts.lin_maxiter)
+    m = min(LDU_RESTART, budget)
+    a2 = alpha * alpha
+
+    sd = sdata = None
+    if _sigma_direct_enabled(opts, fp, nl):
+        mode = "direct"
+        sd = _sigma_direct_update(form, fp, state, alpha, n0, nl)
+    else:
+        mode = "wb"
+        # shifted-V-cycle data for S~ = A + diag(C D~^-1 C^T)
+        sdata = fp.shift_data(arrays["dshift"])
+    s_max = LDU_S_MAX[mode]
+
+    def mvraw(v):
+        return form.grad_mult(state, v)
+
+    def pad_u(v):
+        return torch.cat([v, v.new_zeros(nl)])
+
+    def pad_p(w):
+        return torch.cat([w.new_zeros(n0), w])
+
+    def mvs(v):  # the scaled saddle operator Lam J Lam
+        out = mvraw(torch.cat([v[:n0], alpha * v[n0:]]))
+        return torch.cat([out[:n0], alpha * out[n0:]])
+
+    ainv = None if sd is None else sd.get("Ainv")
+    if ainv is not None:
+        # the exact inverse the dual-Schur factor was built from
+        def V_A(v):
+            return (ainv @ v.to(ainv.dtype)).to(v.dtype)
+    else:
+        def V_A(v):
+            return fp.apply_primal(v)
+
+    if mode == "direct":
+        sinv = sd["Sinv"]
+
+        def SigM(w):
+            return (sinv @ w.to(sinv.dtype)).to(w.dtype)
+    else:
+        Dblk_inv = arrays["Dblk_inv"]
+
+        def Dtinv(w):  # byNODES layout: dof = v*nds + node
+            return torch.einsum("nvw,wn->vn", Dblk_inv,
+                                w.reshape(vl, nds_l)).reshape(-1)
+
+        def SigM(w):
+            z0 = Dtinv(w)
+            z1 = fp.apply_primal(mvraw(pad_p(z0))[:n0], sdata)  # V on S~
+            return (z0 - Dtinv(mvraw(pad_u(z1))[n0:])) / a2
+
+    def Asolve(rhs):
+        return cg(lambda v: mvraw(pad_u(v))[:n0], rhs, M=V_A, tol=LDU_A_TOL,
+                  maxiter=LDU_A_MAX, stall_window=None)[0]
+
+    def Sig_mv(w):  # the scaled dual Schur complement alpha^2 (D + C^T V_A C)
+        t2 = mvraw(pad_p(w))
+        return a2 * (-t2[n0:] + mvraw(pad_u(V_A(t2[:n0])))[n0:])
+
+    def M_ldu(v):
+        ru, rp = v[:n0], v[n0:]
+        zu1 = Asolve(ru)
+        zp = -cg(Sig_mv, rp - alpha * mvraw(pad_u(zu1))[n0:], M=SigM,
+                 tol=LDU_S_TOL, maxiter=s_max, stall_window=None)[0]
+        zu = Asolve(ru - alpha * mvraw(pad_p(zp))[:n0])
+        return torch.cat([zu, zp])
+
+    with profiling.phase(f"ldu/fgmres_{mode}", sync=r):
+        dx, total = _fgmres(mvs, M_ldu, r, n0, alpha, tol, budget, m)
+    if sd is not None:
+        sd["outer_prev"] = total
+    return dx, total
+
+
+def _fgmres(mvs, M_ldu, r, n0: int, alpha: float, tol: float, budget: int,
+            m: int):
+    """Restarted flexible GMRES of ``_ldu_fgmres`` on the scaled system
+    (Lam J Lam) z = Lam r; returns (Lam z, iterations)."""
+    r0 = torch.cat([r[:n0], alpha * r[n0:]])  # the scaled rhs Lam r
+    beta0 = float(torch.linalg.vector_norm(r0))
+    dx = torch.zeros_like(r0)
+    if beta0 == 0.0:
+        return dx, 0
+    target = tol * beta0
+    total = 0
+    rel_prev = 1.0
+    r_cur = r0
+    n = r0.shape[0]
+    while total < budget:
+        beta = float(torch.linalg.vector_norm(r_cur))
+        if beta <= target:
+            break
+        V = r0.new_empty((m + 1, n))
+        Z = r0.new_empty((m, n))
+        V[0] = r_cur / beta
+        H = np.zeros((m + 1, m))
+        g = np.zeros(m + 1)
+        g[0] = beta
+        j_done = 0
+        y = None
+        for j in range(m):
+            Z[j] = M_ldu(V[j])
+            w = mvs(Z[j])
+            Vj = V[:j + 1]
+            # CGS2: classical Gram-Schmidt twice (once leaves ~1e-7 of
+            # orthogonality at tight tolerances), each pass one GEMV; the
+            # column and the norm of what is left reach the host in one
+            # copy
+            h = Vj @ w
+            w = w - h @ Vj
+            h2 = Vj @ w
+            w = w - h2 @ Vj
+            col = torch.cat([h + h2, torch.linalg.vector_norm(w)[None]])
+            col = col.cpu().numpy()
+            H[:j + 1, j] = col[:j + 1]
+            H[j + 1, j] = col[j + 1]
+            total += 1
+            j_done = j + 1
+            y, *_ = np.linalg.lstsq(H[:j + 2, :j + 1], g[:j + 2],
+                                    rcond=None)
+            rn = float(np.linalg.norm(H[:j + 2, :j + 1] @ y - g[:j + 2]))
+            if rn <= target or H[j + 1, j] < 1e-30 or total >= budget:
+                break
+            V[j + 1] = w / H[j + 1, j]
+        yd = torch.as_tensor(y, dtype=Z.dtype, device=Z.device)
+        dx = dx + yd @ Z[:j_done]
+        r_cur = r0 - mvs(dx)
+        rel = float(torch.linalg.vector_norm(r_cur)) / beta0
+        if rel <= tol or rel > 0.95 * rel_prev:
+            break  # converged, or the restart made < 5% progress
+        rel_prev = rel
+    dx[n0:] *= alpha  # the direction is Lam zhat
+    return dx, total
+
+
+def lumped_schur_solve(form, state, r, opts, fp=None, alpha: float = 1.0):
+    """The Newton direction of an LVPP saddle system whose latent couples
+    across elements (ex5's H1^dim latent), where the exact elimination of
+    ``schur_solve`` does not apply: with a primal GMG (``fp``, a
+    ``multigrid.PGSchurGMG``) LDU-preconditioned FGMRES on the
+    alpha-scaled system (``_ldu_fgmres``), else block-diagonal MINRES with
+    an inner CG on the lumped Schur complement (``_lumped_minres``).
+    ``alpha`` is the PG step of the current outer iteration.  Returns
+    (dx, outer iterations)."""
+    if fp is not None and not hasattr(fp, "shift_data"):
+        raise ValueError(
+            f"lin_solver='schur' takes a multigrid.PGSchurGMG "
+            f"preconditioner (or none, or 'jacobi'), not {type(fp).__name__}"
+        )
+    arrays = _schur_arrays(form, state, 1e-6, True, lumped=True)
+    if fp is not None:
+        return _ldu_fgmres(form, opts, fp, state, r, arrays, alpha)
+    return _lumped_minres(form, state, r, arrays, float(opts.lin_tol))
+
+
+# ---------------------------------------------------------------------------
 # Newton
 # ---------------------------------------------------------------------------
 
@@ -441,6 +937,9 @@ class NewtonOptions:
     lin_stall_window: int | None = 200
     preconditioner: object = None  # None | "jacobi" | callable(form, state)
     verbose: bool = False
+    # the dense dual-Schur factor of the lumped LDU direction: "auto" (up
+    # to SIGMA_DIRECT_MAX latent dofs) or False (Woodbury at any size)
+    sigma_direct: object = "auto"
     # consecutive <5% residual reductions after which Newton counts as
     # floored and stops unconverged; None disables the exit
     stall_iters: int | None = 2
@@ -498,10 +997,15 @@ def _direction(form, x, b, fields, opts: NewtonOptions):
     ``multigrid`` preconditioners) is asked for the direction's
     preconditioner at the iterate: a GMG's finest level takes the Newton
     state and a nonlinear GMG re-linearizes every level at ``x``.  The
-    Schur direction takes it as its condensed-system preconditioner."""
+    Schur direction takes it as its condensed-system preconditioner, the
+    lumped one (a latent that is not L2) as the GMG of its LDU
+    preconditioner."""
     r = _residual(form, x, b, fields)
     state = form.grad_state(x, fields)
     fp = getattr(opts.preconditioner, "fused_precond", None)
+    if opts.lin_solver == "schur" and form.spaces[-1].fe_type != "L2":
+        alpha = float(fields.get("alpha", 1.0))
+        return lumped_schur_solve(form, state, r, opts, fp=fp, alpha=alpha)
     if opts.lin_solver == "schur":
         return schur_solve(form, state, r, opts.lin_tol, opts.lin_maxiter,
                            fp=fp)
@@ -549,10 +1053,12 @@ def newton(form, x0, b=None, fields=None, opts: NewtonOptions | None = None):
     b``; the direction comes from ``opts.lin_solver``: a matrix-free
     Krylov solve ("cg", "gmres", "minres"; preconditioned per
     ``opts.preconditioner``), the dense direct solve of the assembled
-    Jacobian ("dense", ``dense_solve``), the exact Schur elimination of an
-    LVPP saddle system with an L2 latent ("schur", ``schur_solve``;
-    ``lin_iters`` counts its CG iterations, refinement pass included), or
-    a callable ``(form, state, r) -> c``."""
+    Jacobian ("dense", ``dense_solve``), the LVPP saddle direction
+    ("schur": the exact Schur elimination of an L2 latent,
+    ``schur_solve``, whose CG iterations ``lin_iters`` counts, refinement
+    pass included; for any other latent ``lumped_schur_solve``, whose
+    FGMRES or MINRES iterations it counts), or a callable ``(form, state,
+    r) -> c``."""
     opts = opts or NewtonOptions()
     if not (callable(opts.lin_solver)
             or opts.lin_solver in _KRYLOV + ("dense", "schur")):

@@ -91,7 +91,7 @@ def test_element_matrices_w0_matches_jax(case):
     H = Hq.full()
     v, sd = pi.vdim[0], pi.sd[0]
     H6 = H.reshape(H.shape[0], pi.nq, v, sd, v, sd)
-    B = pi.tables["B"][0][0]
+    B = pi.tables["B"][0]  # [1, nq, nd, sd], element-shared
     A_e = _elmat_from_h(B, B, H6).reshape(A_p.shape)
     assert _rel(A_p.numpy(), A_e.numpy()) <= 1e-13
 

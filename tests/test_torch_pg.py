@@ -254,15 +254,17 @@ def test_schur_and_obstacle_refusals_are_named():
     with pytest.raises(ValueError, match="2-block"):
         PS.make_pg_schur_solver(latent_block=0)(pb.form, None, None)
 
-    # an H1 latent needs the lumped Schur complement (ex5)
+    # an H1 latent takes the lumped direction (ex5), not the exact
+    # elimination
     h1 = pb.primal_space
     form = PBlockForm([h1, h1], device=DEV)
-    with pytest.raises(NotImplementedError, match="ex5"):
+    with pytest.raises(ValueError, match="lumped_schur_solve"):
         PS.schur_solve(form, None, None, 1e-12, 10)
 
-    with pytest.raises(NotImplementedError, match="A4"):
-        pobs.build(order=1, ref_levels=0, n0=2, dim=3, geom="tet",
-                   device=DEV)
+    # tets are ported: the obstacle builds on them
+    tet = pobs.build(order=1, ref_levels=0, n0=2, dim=3, geom="tet",
+                     device=DEV)
+    assert tet.mesh.geom == "tetrahedron"
     for fn in (pobs.build_dofpg, pobs.solve_dofpg):
         with pytest.raises(NotImplementedError, match="dof_pg"):
             fn()
