@@ -77,8 +77,8 @@ main paths through their public entry points:
         the largest difference of the two solutions, one V-cycle's time;
      G2 ex4's problem at the reference defaults with the smoke flags
         (order 2, ref 3, 83,681 dofs, -rule 2 -a0 0.1 -ar 2), Schur + the
-        shifted hp-GMG, its first 10 PG iterations (of 38: PR 9 ran it to
-        convergence three times with equal counts): Newton iterations,
+        shifted hp-GMG, its first 5 PG iterations (of 38 to convergence,
+        equal in three whole runs): Newton iterations,
         CG per Newton step, the lambda-diff trajectory, wall time; and
         ex4's ``main`` with the smoke flags and the dense solver at order
         2 ref 0, run to convergence within the bounds;
@@ -86,7 +86,7 @@ main paths through their public entry points:
         iteration, CG per Newton step against G2's, and one direction's
         grad_state, Schur arrays and CG;
      G4 the Schur direction against the dense direct solver, order 2 ref
-        1, 6 fixed PG iterations (12 in PR 9);
+        1, 3 of the JAX test's 12 fixed PG iterations;
   H. unstructured assembly and the gradient-constrained obstacle (no
      kernel: element-varying geometry and two-space forms take two-stage):
      H1 512^2 cells of triangles (524,288), p1 vdim 2 neo-Hookean f32: the
@@ -110,9 +110,27 @@ main paths through their public entry points:
         FGMRES counts, the factor's refreshes and their time, wall time,
         and the JAX regression test's checks of the constraint;
      H6 ex5's problem at ref 4 (154,883 dofs, 51,842 latent dofs: the
-        Woodbury mode): the first Newton direction with FGMRES cut to 8
+        Woodbury mode): the first Newton direction with FGMRES cut to 4
         iterations (a whole Woodbury direction runs hundreds, PERF.md):
-        time per iteration and the residual they reach, beside H5's.
+        time per iteration and the residual they reach, beside H5's;
+  I. dof-level PG, SiMPL topology optimization, LinearForm's chunked path,
+     the template driver and GLVis (no kernel):
+     I1 ex4 --dof-pg at the reference defaults (order 2, ref 3: H1 Q3 +
+        the L2 Q3 dual, 160,481 dofs, Jacobi-MINRES, rule 0, alpha 1),
+        with and without --spatial-bound, up to 6 PG iterations each:
+        lambda diff, Newton iterations, MINRES per Newton step and wall
+        per PG iteration, u against its bound; ex4's ``main`` with
+        --dof-pg --spatial-bound and the dense solver at order 0 ref 0;
+        the JAX package's slow test's case (6x6, dense) to convergence
+        with its checks;
+     I2 topopt's ``main`` at its defaults (48x24 p1, 60 iterations)
+        against the JAX package's numbers from a CPU run; a 256x128
+        cantilever (66,306 dofs), 10 iterations: CG per state solve and
+        whether it reached lin_tol, sensitivity and wall per iteration;
+     I3 LinearForm at 100^3 p1 hexes with a FunctionCoefficient on the
+        host: the chunked path against the whole-mesh einsum, timed;
+     I4 the template driver's ``main`` with -vis on the card against a
+        loopback GLVis server in a thread: the stream it receives.
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
@@ -130,13 +148,16 @@ with an error.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -154,11 +175,13 @@ from mfem_ad_tpu_torch.ad import (
     NeoHookeanEnergy,
 )
 from mfem_ad_tpu_torch.adeval import ADEval
+from mfem_ad_tpu_torch.coefficients import Coefficient, FunctionCoefficient
 from mfem_ad_tpu_torch.fespace import FESpace
 from mfem_ad_tpu_torch.forms import LinearForm, NonlinearForm
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator
 from mfem_ad_tpu_torch import solvers
-from mfem_ad_tpu_torch.examples import ex1, ex2, ex3, ex4, ex5
+from mfem_ad_tpu_torch import mmto
+from mfem_ad_tpu_torch.examples import ex1, ex2, ex3, ex4, ex5, template, topopt
 from mfem_ad_tpu_torch.geometry import geom_factors, phys_dshape
 from mfem_ad_tpu_torch.models import (
     elasticity,
@@ -175,7 +198,7 @@ from mfem_ad_tpu_torch.ops import nvcc
 from mfem_ad_tpu_torch.pg import PGStepSizeRule
 from mfem_ad_tpu_torch.quadrature import TETRAHEDRON, TRIANGLE, get_rule
 from mfem_ad_tpu_torch.solvers import NewtonOptions, newton
-from mfem_ad_tpu_torch.utils import profiling
+from mfem_ad_tpu_torch.utils import glvis, profiling
 
 MODE = ADEval.GRAD | ADEval.VECTOR
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}  # x max|A|
@@ -1296,13 +1319,13 @@ def pg_lines(text: str, tag: str) -> list[dict]:
     return rows
 
 
-G2_ITERS = 10  # of the 38 to convergence, measured in three runs (PR 9)
+G2_ITERS = 5  # of the 38 to convergence, equal in three whole runs
 
 
 def phase_g2(dev):
     """ex4's problem at the reference defaults with the smoke flags (order
     2, ref 3: 80x80 quads, H1 Q3 + L2 Q1, 83,681 dofs), Schur + the
-    shifted hp-GMG, its first 10 PG iterations; and ex4's ``main`` with
+    shifted hp-GMG, its first 5 PG iterations; and ex4's ``main`` with
     the smoke flags and the dense solver at order 2 ref 0, run to
     convergence."""
     torch.cuda.synchronize()
@@ -1403,12 +1426,12 @@ def phase_g3(dev, g2_cg):
     log("phase G3 ok")
 
 
-G4_REFS, G4_ITERS = 1, 6  # 12 iterations in PR 9, equal in three runs
+G4_REFS, G4_ITERS = 1, 3  # of the JAX test's 12, equal in three runs
 
 
 def phase_g4(dev):
     """Schur + hp-GMG against the dense direct solver on the card: order
-    2, ref 1, the first 6 of the 12 fixed PG iterations of the JAX
+    2, ref 1, the first 3 of the 12 fixed PG iterations of the JAX
     package's test_inexact_schur_matches_tight_dense_obstacle."""
     kw = dict(order=2, ref_levels=G4_REFS, rule_type=PGStepSizeRule.EXP,
               alpha0=0.1, ratio=2.0, max_pg_iter=G4_ITERS, tol=0.0,
@@ -1451,7 +1474,7 @@ H3_N, H3_AMP = 512, 0.15  # perturbed quads, the JAX tests' perturbation
 # ex5 at the reference defaults (order 2, ref 3) with the smoke flags
 EX5_FLAGS = ["-rule", "2", "-a0", "1", "-ar", "2"]
 H6_REFS = 4  # 154,883 dofs, 51,842 latent: Woodbury mode
-H6_BUDGET = 8  # FGMRES iterations of its first direction
+H6_BUDGET = 4  # FGMRES iterations of its first direction
 
 
 def dof_map(fa, fb):
@@ -1828,7 +1851,7 @@ def phase_h6(dev, h5):
     Newton direction (alpha 1, from zero) with FGMRES cut to its first 8
     iterations.  A whole Woodbury direction there runs hundreds of FGMRES
     iterations (``tools/ldu_probe_torch.py``, ``PERF.md``), so whole PG
-    iterations do not fit this script; 8 iterations measure the time per
+    iterations do not fit this script; 4 iterations measure the time per
     iteration and the residual they reach."""
     pb = gradient_obstacle.build(2, H6_REFS, device=dev)
     fp = gradient_obstacle._primal_gmg(2, H6_REFS, 10, device=dev)
@@ -1872,6 +1895,223 @@ def phase_h6(dev, h5):
         raise AssertionError("H6: the FGMRES cycle did not reduce the "
                              "residual")
     log("phase H6 ok")
+
+
+# ---------------------------------------------------------------------------
+# I: dof-level PG, SiMPL topology optimization, LinearForm's chunked path,
+#    the template driver and GLVis (no kernel)
+# ---------------------------------------------------------------------------
+
+
+I1_ITERS = 6  # PG iterations of each reference-default dof-PG run
+# the JAX package's examples/topopt.py at its defaults (48x24 p1, 60
+# iterations) on a CPU: iterations, final compliance, volume fraction, rho's
+# range and the elements at exactly rho = 1.0
+JAX_TOPOPT = {"its": 60, "compliance": 5.501246242724507e-3, "volume": 0.5,
+              "rho_min": 7.140014330108268e-10, "rho_max": 1.0,
+              "saturated": 196}
+TOPOPT_RTOL = 1e-8  # the port's CPU run: 1.6e-12 from JAX's after 60 steps
+I2_N, I2_ITERS = 256, 10  # 256x128 cantilever: 32,768 elements
+I3_N = 100  # 100^3 p1 hexes
+
+
+def dofpg_bound(pb, spatial: bool):
+    """The upper bound at the primal nodes."""
+    x = torch.as_tensor(pb.primal_space.node_coords[:, 0],
+                        dtype=torch.float64, device=pb.rhs.device)
+    return 0.3 + 0.2 * x if spatial else torch.full_like(x, 0.5)
+
+
+def phase_i1(dev):
+    """ex4 --dof-pg at the reference defaults (order 2, ref 3: H1 Q3 on
+    80x80 cells + the L2 Q3 dual, 160,481 dofs; Jacobi-MINRES, rule 0,
+    alpha 1, tol 1e-6), its first I1_ITERS PG iterations with and without
+    --spatial-bound; ex4's ``main`` with --dof-pg --spatial-bound and the
+    dense solver at order 0 ref 0; the JAX package's slow test's case
+    (6x6 cells, dense, EXP 1.4 to 30) run to convergence with its
+    assertions."""
+    for spatial in (False, True):
+        tag = f"I1 {'--spatial-bound' if spatial else 'upper 0.5'}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (res, pb), text = run_captured(lambda: obstacle.solve_dofpg(
+            order=2, ref_levels=3, max_pg_iter=I1_ITERS, tol=1e-6,
+            spatial_bound=spatial, verbose=True, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = pg_lines(text, tag)
+        u = pb.form.split(res.x)[0]
+        excess = float((u - dofpg_bound(pb, spatial)).max())
+        minres = [round(r["lin"] / max(r["newton"], 1), 1) for r in rows]
+        diffs = ", ".join(f"{r['lam_diff']:.4e}" for r in rows)
+        log(f"{tag}: {pb.form.ndof} dofs, {res.iterations} PG iterations "
+            f"({len(rows)} completed), converged {res.converged}, lambda "
+            f"diff {res.lambda_diff:.4e}, wall {wall:.3f} s")
+        log(f"{tag} newton per PG iteration {res.newton_iters}; MINRES per "
+            f"Newton step {minres}; lambda diff [{diffs}]; s per PG "
+            f"iteration {[r['s'] for r in rows]}")
+        log(f"{tag} u in [{float(u.min()):.6e}, {float(u.max()):.6f}], "
+            f"max(u - upper bound) {excess:.3e}")
+        if not rows or not bool(torch.isfinite(res.x).all()):
+            raise AssertionError(f"{tag}: no finite PG iteration")
+    flags = ["--dof-pg", "--spatial-bound", "-o", "0", "-r", "0",
+             "--solver", "dense", "-rule", "2", "-a0", "1", "-ar", "2",
+             "-ma", "30", "--device", str(dev)]
+    (res, pb), text = run_captured(lambda: ex4.main(flags))
+    pg_lines(text, "I1 ex4.main")
+    if not (res.converged and "(bounds [0, 0.3 + 0.2 x])" in text):
+        raise AssertionError("I1: ex4.main --dof-pg did not converge")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, pb = obstacle.solve_dofpg(
+        order=1, ref_levels=0, n0=6, max_pg_iter=80, tol=1e-6,
+        spatial_bound=True, rule_type=PGStepSizeRule.EXP, alpha0=1.0,
+        ratio=1.4, max_alpha=30.0, lin_solver="dense", device=dev)
+    wall = time.perf_counter() - t0
+    u = pb.form.split(res.x)[0]
+    ub = dofpg_bound(pb, True)
+    log(f"I1 the JAX slow test's case: converged {res.converged} in "
+        f"{res.iterations} PG iterations (JAX on a CPU: 12), newton "
+        f"{res.newton_iters}, lambda diff {res.lambda_diff:.4e}, min u "
+        f"{float(u.min()):.3e}, max(u - ub) {float((u - ub).max()):.3e}, "
+        f"wall {wall:.3f} s")
+    if not (res.converged and float(u.min()) > -1e-8
+            and bool((u <= ub + 1e-8).all())
+            and bool((u > ub - 1e-3).any())):
+        raise AssertionError("I1: the slow test's case failed its checks")
+    log("phase I1 ok")
+
+
+def phase_i2(dev):
+    """topopt's ``main`` at its defaults against the JAX package's numbers;
+    then a 256x128 cantilever (66,306 dofs), 10 mirror-descent
+    iterations: CG per state solve and its residual, sensitivity and
+    wall per iteration."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (res, opt), text = run_captured(lambda: topopt.main(
+        ["--device", str(dev)]))
+    wall = time.perf_counter() - t0
+    for line in text.splitlines()[-2:]:
+        log(f"I2 topopt.main | {line}")
+    rho = res.rho
+    got = {"its": len(res.compliance_history),
+           "compliance": res.compliance_history[-1],
+           "volume": res.volume_history[-1],
+           "rho_min": float(rho.min()), "rho_max": float(rho.max()),
+           "saturated": int((rho == 1.0).sum())}
+    err = abs(got["compliance"] / JAX_TOPOPT["compliance"] - 1.0)
+    log(f"I2 topopt defaults (48x24 p1): {got}; JAX's {JAX_TOPOPT}; "
+        f"compliance {err:.3e} from JAX's (tol {TOPOPT_RTOL}); CG per state "
+        f"solve {res.cg_iterations}; max state residual "
+        f"{max(res.state_residuals):.3e}; wall {wall:.3f} s")
+    if not (got["its"] == JAX_TOPOPT["its"] and err <= TOPOPT_RTOL
+            and got["saturated"] == JAX_TOPOPT["saturated"]
+            and abs(got["volume"] - JAX_TOPOPT["volume"]) < 1e-6
+            and got["rho_max"] == 1.0 and got["rho_min"] >= 0.0):
+        raise AssertionError("I2: topopt disagrees with the JAX package")
+    form, design, b, m, disp = mmto.build_cantilever(
+        nx=I2_N, ny=I2_N // 2, device=dev)
+    opt = mmto.SiMPLTopopt(form, design, b, vol_frac=0.5, step=5.0)
+    profiling.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = opt.solve(max_iter=I2_ITERS, tol=0.0)
+    wall = time.perf_counter() - t0
+    stats = profiling.cost_table()
+    ms = {k.split("/")[1]: 1e3 * v.total_s / v.count
+          for k, v in stats.items() if k.startswith("topopt/")}
+    c = res.compliance_history
+    # a state solve reached lin_tol when its true residual is within
+    # rounding of it; the others stopped at CG's floor exit (no 1% drop of
+    # the best residual in 200 iterations), as the JAX package's CG does
+    reached = [r <= 1.1 * opt.lin_tol for r in res.state_residuals]
+    log(f"I2 cantilever {I2_N}x{I2_N // 2} p1 ({form.ndof} dofs, "
+        f"{m.num_elements} elements), {len(c)} iterations: compliance "
+        f"[{', '.join(f'{x:.6e}' for x in c)}]; CG per state solve "
+        f"{res.cg_iterations} (lin_maxiter {opt.lin_maxiter}); relative "
+        f"state residuals [{', '.join(f'{r:.2e}' for r in res.state_residuals)}]"
+        f"; reached lin_tol {opt.lin_tol}: {reached}; ms per iteration: "
+        f"state {ms['state']:.1f}, sensitivity {ms['sensitivity']:.2f}, "
+        f"volume bisection {ms['volume']:.1f}; wall {wall:.3f} s, "
+        f"{wall / len(c):.3f} s per iteration")
+    if not (len(c) == I2_ITERS and np.isfinite(c).all()
+            and bool(torch.isfinite(res.rho).all())
+            and abs(res.volume_history[-1] - 0.5) < 1e-6):
+        raise AssertionError("I2: the card-sized cantilever failed")
+    log("phase I2 ok")
+
+
+def phase_i3():
+    """LinearForm at 100^3 p1 hexes (1,000,000 elements) with a
+    FunctionCoefficient on the host: the chunked path against the
+    whole-mesh einsum (the same coefficient behind an adapter that the
+    chunked path does not take)."""
+    m = M.make_cartesian_3d(I3_N, I3_N, I3_N)
+    fes = FESpace(m, 1)
+    fc = FunctionCoefficient(obstacle.load_fn_3d)
+
+    class WholeMesh(Coefficient):
+        def eval_qp(self, ctx):
+            return fc.eval_qp(ctx)
+
+    out = {}
+    for name, coeff in (("chunked", fc), ("whole-mesh", WholeMesh())):
+        t0 = time.perf_counter()
+        out[name] = (LinearForm(fes, coeff).assemble(),
+                     time.perf_counter() - t0)
+    (bc, tc), (bw, tw) = out["chunked"], out["whole-mesh"]
+    diff = float(np.abs(bc - bw).max() / np.abs(bw).max())
+    log(f"I3 LinearForm {I3_N}^3 p1 hexes ({m.num_elements} elements, "
+        f"{fes.ndof} dofs), FunctionCoefficient, host: chunked {tc:.3f} s, "
+        f"whole-mesh einsum {tw:.3f} s; max difference {diff:.3e} max|b| "
+        f"(tol 1e-12)")
+    if diff > 1e-12:
+        raise AssertionError("I3: the chunked load vector differs")
+    log("phase I3 ok")
+
+
+def phase_i4(dev):
+    """The template driver's ``main`` with -vis on the card against a
+    loopback GLVis server in a thread: the stream it receives."""
+    srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    srv.bind(("127.0.0.1", 0))
+    srv.listen(2)
+    received = []
+
+    def serve():
+        with srv:
+            for _ in range(2):  # the probe, then the field
+                conn, _ = srv.accept()
+                with conn:
+                    chunks = []
+                    while (b := conn.recv(65536)):
+                        chunks.append(b)
+                if chunks:
+                    received.append(b"".join(chunks).decode())
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    client = template.GLVis
+    template.GLVis = functools.partial(client, host="127.0.0.1",
+                                       port=srv.getsockname()[1])
+    try:
+        (fes, u), text = run_captured(lambda: template.main(
+            ["-n", "10", "-o", "2", "-vis", "--device", str(dev)]))
+    finally:
+        template.GLVis = client
+    th.join(timeout=30.0)
+    expect = ("solution\n" + glvis._mesh_ascii(fes.mesh)
+              + glvis._gridfunction_ascii(fes, u)
+              + "window_title 'u'\nwindow_geometry 0 0 400 350\nkeys Rjc\n")
+    log(f"I4 template.main on {u.device}: {text.strip()!r}; GLVis server "
+        f"received {len(received)} stream(s), {len(received[0]) if received else 0}"
+        f" bytes, equal to the expected stream: "
+        f"{bool(received) and received[0] == expect}")
+    if th.is_alive() or received != [expect]:
+        raise AssertionError("I4: the GLVis stream differs")
+    log("phase I4 ok")
+
 
 
 def main() -> int:
@@ -2051,6 +2291,19 @@ def main() -> int:
     phase_h6(dev, h5)
     log(f"phase_h6: {time.perf_counter() - t0:.1f} s")
     log("H kernel launches (full-W, AD, blocked): "
+        f"{[k.launches for k in kernels]}")
+
+    # nor on phase I's: the dof-PG form is a two-space form, SiMPL's state
+    # solve is matrix-free, the load vector and GLVis are host work
+    for k in kernels:
+        k.launches = 0
+    for phase, args in ((phase_i1, (dev,)), (phase_i2, (dev,)),
+                        (phase_i3, ()), (phase_i4, (dev,))):
+        t0 = time.perf_counter()
+        phase(*args)
+        torch.cuda.empty_cache()
+        log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    log("I kernel launches (full-W, AD, blocked): "
         f"{[k.launches for k in kernels]}")
 
     print(json.dumps({"kernels": [{

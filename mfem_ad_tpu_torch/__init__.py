@@ -16,8 +16,10 @@ against the full W (``ops.ad_jacobian``).
 Layout mirrors the JAX package: ``mesh`` ``fespace`` ``quadrature``
 ``basis`` ``geometry`` (numpy substrate), ``ad`` (energies), ``adeval``
 ``integrator`` ``forms`` (assembly), ``solvers``, ``multigrid``, ``pg``
-(the LVPP layer), ``models``, ``ops`` (kernels), ``utils`` (logging,
-checkpoints, VTU export, profiling), ``examples`` (ex0-ex4), ``bench``
+and ``dof_pg`` (the LVPP layer), ``mmto`` (SiMPL topology
+optimization), ``models``, ``ops`` (kernels), ``utils`` (logging,
+checkpoints, VTU export, GLVis, profiling), ``examples`` (ex0-ex5,
+topopt, template), ``bench``
 (``python -m mfem_ad_tpu_torch.bench``), ``convert`` (tables from the
 JAX package's arrays).
 

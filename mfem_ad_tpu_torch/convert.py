@@ -7,6 +7,11 @@ returns the port's tables dictionary, ready for
 ``ADBlockIntegrator(..., tables=...)``: element-varying B, w and statics
 (the pullback's ``_invj``) and the transpose-gather table ``einv`` come
 across as they are.
+
+The tables of a ``DofPGIntegrator`` nest an integrator's under "inner"
+beside tuples of arrays and tuples of dicts (``wn``, ``edof_p``,
+``edof_d``, ``static``, ``efield``); they cross leaf by leaf, the inner
+tables by the rules above.
 """
 
 from __future__ import annotations
@@ -26,7 +31,20 @@ def _leaf(a, device, dtype):
     return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
+def _tree(val, device, dtype):
+    """Leaves of nested tuples, lists and dicts as tensors."""
+    if isinstance(val, (tuple, list)):
+        return tuple(_tree(v, device, dtype) for v in val)
+    if isinstance(val, dict):
+        return {k: _tree(v, device, dtype) for k, v in val.items()}
+    return _leaf(val, device, dtype)
+
+
 def tables_from_numpy(tables: dict, device, dtype: torch.dtype) -> dict:
+    if "inner" in tables:  # a DofPGIntegrator's
+        return {key: (tables_from_numpy(val, device, dtype) if key == "inner"
+                      else _tree(val, device, dtype))
+                for key, val in tables.items()}
     out = {}
     for key, val in tables.items():
         if key == "field":  # name -> (edof, phi): phi and "field_edof"
@@ -35,14 +53,8 @@ def tables_from_numpy(tables: dict, device, dtype: torch.dtype) -> dict:
             out["field_edof"] = {k: _leaf(pair[0], device, dtype)
                                  for k, pair in val.items()}
             continue
-        if key in _UNPORTED:
-            continue
-        if isinstance(val, (tuple, list)):
-            out[key] = tuple(_leaf(v, device, dtype) for v in val)
-        elif isinstance(val, dict):
-            out[key] = {k: _leaf(v, device, dtype) for k, v in val.items()}
-        else:
-            out[key] = _leaf(val, device, dtype)
+        if key not in _UNPORTED:
+            out[key] = _tree(val, device, dtype)
     # element-varying shape tensors: the JAX package installs no W0 / W
     for key in ("W0", "W"):
         out.setdefault(key, {})

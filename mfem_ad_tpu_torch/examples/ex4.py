@@ -4,7 +4,8 @@
 L2(p-1) spaces; the outer PG loop with the alpha schedule flags and the
 lambda-increment stopping rule.  The default solver is the exact Schur
 elimination of the latent with CG preconditioned by the alpha-shifted
-hp-GMG.  The reference's smoke invocation:
+hp-GMG.  ``--dof-pg`` runs the dof-level PG variant (``--spatial-bound``:
+the upper bound 0.3 + 0.2 x).  The reference's smoke invocation:
 
     python -m mfem_ad_tpu_torch.examples.ex4 -rule 2 -a0 0.1 -ar 2
 """
@@ -44,41 +45,50 @@ def main(argv=None):
                          "iteration to LOGDIR and print the per-phase cost "
                          "table of the whole run")
     ap.add_argument("--dof-pg", action="store_true",
-                    help="dof-level PG variant (not ported yet)")
+                    help="dof-level PG variant: entropy coupling at the H1 "
+                         "nodal points, L2 dual of equal order, Jacobi-"
+                         "MINRES directions (schur maps to minres); use "
+                         "modest -r (the saddle conditioning grows like "
+                         "alpha x E*'' saturation)")
     ap.add_argument("--spatial-bound", action="store_true",
-                    help="with --dof-pg: a spatially varying upper bound "
-                         "(not ported yet)")
+                    help="with --dof-pg: upper bound 0.3 + 0.2 x as a "
+                         "grid-function entropy parameter")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.dof_pg or args.spatial_bound:
-        raise NotImplementedError(
-            "--dof-pg and --spatial-bound: the dof-level PG variant "
-            "(dof_pg) is not ported yet (ROADMAP A5)"
-        )
 
     if args.profile:
         profiling.reset()
+    common = dict(
+        order=args.order,
+        ref_levels=args.ref,
+        dim=args.dim,
+        rule_type=args.rule,
+        alpha0=args.alpha0,
+        max_alpha=args.max_alpha,
+        ratio=args.alpha_ratio,
+        ratio2=args.alpha_ratio2,
+        verbose=True,
+        device=args.device,
+    )
     with profiling.trace(args.profile):
-        res, pb = obstacle.solve(
-            order=args.order,
-            ref_levels=args.ref,
-            dim=args.dim,
-            geom=args.geom,
-            rule_type=args.rule,
-            alpha0=args.alpha0,
-            max_alpha=args.max_alpha,
-            ratio=args.alpha_ratio,
-            ratio2=args.alpha_ratio2,
-            lin_solver=args.solver,
-            verbose=True,
-            device=args.device,
-        )
+        if args.dof_pg:
+            res, pb = obstacle.solve_dofpg(
+                lin_solver=("minres" if args.solver == "schur"
+                            else args.solver),
+                spatial_bound=args.spatial_bound,
+                tol=1e-6,
+                **common,
+            )
+        else:
+            res, pb = obstacle.solve(geom=args.geom,
+                                     lin_solver=args.solver, **common)
     u = to_numpy(res.x[: pb.primal_space.ndof])
     print(
         f"PG {'converged' if res.converged else 'stopped'} in "
         f"{res.iterations} iterations, final lambda diff {res.lambda_diff:.3e}"
     )
-    print(f"u range: [{u.min():.6f}, {u.max():.6f}] (bounds [0, 0.5])")
+    ub = "0.3 + 0.2 x" if args.spatial_bound else "0.5"
+    print(f"u range: [{u.min():.6f}, {u.max():.6f}] (bounds [0, {ub}])")
     if args.profile:
         profiling.print_cost_table()
     maybe_export(

@@ -24,7 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .coefficients import FunctionCoefficient, QPContext, as_coefficient
+from .basis import ref_element
+from .coefficients import (
+    ConstantCoefficient,
+    FunctionCoefficient,
+    QPContext,
+    as_coefficient,
+)
 from .fespace import FESpace
 from .geometry import geom_factors
 from .integrator import ADBlockIntegrator
@@ -157,7 +163,9 @@ class NonlinearForm(BlockNonlinearForm):
 
 class LinearForm:
     """Load vector b_d = ∫ f φ_d (DomainLFIntegrator), assembled on the
-    host as a numpy array.
+    host as a numpy array.  Constant and function coefficients on a
+    uniform-Jacobian mesh of more than 2^16 elements take the chunked
+    path (``_assemble_uniform_chunked``).
 
     For vdim>1 spaces, ``coeff`` must produce vdim values per point
     (VectorDomainLFIntegrator).
@@ -177,18 +185,64 @@ class LinearForm:
             order = 2 * sp.order + 2
         ir = get_rule(sp.mesh.geom, order)
         phi = sp.elem.eval(ir.points)  # [nq, nd]
-        gf = geom_factors(sp.mesh, ir)
-        vals = np.asarray(
-            self.coeff.eval_qp(QPContext(gf.xq, ir=ir, mesh=sp.mesh))
-        )  # [ne, nq, k]
-        if vals.shape[-1] != sp.vdim:
-            raise ValueError(
-                f"load coefficient size {vals.shape[-1]} != vdim {sp.vdim}"
-            )
-        be = np.einsum("qd,eqv,eq->edv", phi, vals, gf.w, optimize=True)
+        mesh = sp.mesh
+        # The chunked path hands the coefficient a chunk-local QPContext,
+        # which is only right for coefficients that evaluate pointwise
+        # from ctx.xq; element-indexed kinds (QuadratureCoefficient,
+        # field-backed adapters) must see the whole mesh's context.
+        pointwise = isinstance(
+            self.coeff, (ConstantCoefficient, FunctionCoefficient))
+        if (pointwise and mesh.uniform_jacobian
+                and mesh.num_elements > (1 << 16)):
+            be = self._assemble_uniform_chunked(ir, phi)
+        else:
+            gf = geom_factors(mesh, ir)
+            vals = np.asarray(
+                self.coeff.eval_qp(QPContext(gf.xq, ir=ir, mesh=mesh))
+            )  # [ne, nq, k]
+            if vals.shape[-1] != sp.vdim:
+                raise ValueError(
+                    f"load coefficient size {vals.shape[-1]} != "
+                    f"vdim {sp.vdim}")
+            be = np.einsum("qd,eqv,eq->edv", phi, vals, gf.w, optimize=True)
         idx = np.asarray(sp.edof)[:, :, None] + (
             np.arange(sp.vdim, dtype=np.int32) * np.int32(sp.ndof_scalar)
         )
         return np.bincount(
             idx.ravel(), weights=be.ravel(), minlength=sp.ndof
         )
+
+    def _assemble_uniform_chunked(self, ir, phi) -> np.ndarray:
+        """Element load vectors [ne, nd, vdim] of a uniform-Jacobian mesh,
+        2^16 elements at a time: the qp coordinates are origin[e] + (J
+        xi)[q], built per chunk into one reused buffer instead of one
+        [ne, nq, dim] array, so the working set stays the chunk's."""
+        sp = self.space
+        mesh = sp.mesh
+        ne, nq = mesh.num_elements, len(ir.weights)
+        dim, nd, vdim = mesh.dim, phi.shape[1], sp.vdim
+        dN = ref_element(mesh.geom, 1).grad(ir.points)  # [nq, nc, dim]
+        c0 = mesh.vertices[mesh.elements[0].astype(np.int64)]  # [nc, dim]
+        J = np.einsum("cm,ck->km", dN[0], c0)  # the constant affine Jacobian
+        det = float(np.linalg.det(J))
+        if det <= 0:
+            raise ValueError("non-positive element Jacobian")
+        off = ir.points @ J.T  # [nq, dim] qp offsets within any element
+        phiw = phi * (det * ir.weights)[:, None]  # [nq, nd]
+        origins = mesh.vertices[mesh.elements[:, 0].astype(np.int64)]
+
+        CH = 1 << 16
+        be = np.empty((ne, nd, vdim))
+        xbuf = np.empty((CH, nq, dim))
+        for s in range(0, ne, CH):
+            e = min(s + CH, ne)
+            xb = xbuf[: e - s]
+            np.add(origins[s:e, None, :], off[None, :, :], out=xb)
+            vals = np.asarray(
+                self.coeff.eval_qp(QPContext(xb, ir=ir, mesh=mesh)))
+            if vals.shape[-1] != vdim:
+                raise ValueError(
+                    f"load coefficient size {vals.shape[-1]} != "
+                    f"vdim {vdim}")
+            np.einsum("qd,bqv->bdv", phiw, vals, optimize=True, out=be[s:e])
+        return be

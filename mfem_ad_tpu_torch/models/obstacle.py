@@ -7,7 +7,11 @@ The default solver is the exact Schur elimination of the L2 latent with
 CG on the condensed primal system, preconditioned by the alpha-shifted
 hp-GMG on the primal diffusion block (``_primal_gmg``).  On tetrahedra
 (``dim=3, geom="tet"``) there is no dof grid for the GMG, and the
-condensed CG takes its Jacobi diagonal."""
+condensed CG takes its Jacobi diagonal.
+
+``build_dofpg`` / ``solve_dofpg`` are the dof-level PG variant
+(``dof_pg``): the coupling at the H1 nodal points, an L2 dual of equal
+order, Jacobi-MINRES (or dense) directions."""
 
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import torch
 from .. import mesh as M
 from ..ad import ADFunction, DiffusionEnergy
 from ..adeval import ADEval
+from ..coefficients import GridFunctionCoefficient
+from ..dof_pg import DofPGIntegrator
 from ..fespace import L2, FESpace
 from ..forms import BlockNonlinearForm, LinearForm, NonlinearForm
 from ..integrator import ADBlockIntegrator
@@ -104,18 +110,91 @@ def build(order: int = 2, ref_levels: int = 3, n0: int = 10,
     )
 
 
-def build_dofpg(*args, **kwargs):
-    raise NotImplementedError(
-        "build_dofpg: the dof-level PG variant (dof_pg) is not ported yet "
-        "(ROADMAP A5)"
+def build_dofpg(order: int = 2, ref_levels: int = 3, n0: int = 10,
+                lower: float = 0.0, upper=0.5, dim: int = 2, mesh=None, *,
+                device="cuda", dtype: torch.dtype = torch.float64) -> Problem:
+    """The dof-level PG variant: the entropy coupling acts at the H1 nodal
+    points, the dual space is L2 of the SAME order (equal element dof
+    count).  ``upper`` may be a float or a coefficient; a
+    ``GridFunctionCoefficient`` is a spatially varying box bound whose dof
+    vector the solver's ``fields`` supply."""
+    m = mesh
+    if m is None:
+        m = (M.make_cartesian_3d(n0, n0, n0) if dim == 3
+             else M.make_cartesian_2d(n0, n0)).uniform_refine(ref_levels)
+    h1 = FESpace(m, order + 1)
+    dual = FESpace(m, order + 1, L2)
+    ir_order = 3 * order + 3
+    intg = DofPGIntegrator(
+        ObstacleEnergy(m.dim), [h1], [ADEval.VALUE | ADEval.GRAD], [dual],
+        [FermiDiracEntropy(lower, upper)], ir_order=ir_order, device=device,
+        dtype=dtype,
+    )
+    form = BlockNonlinearForm([h1, dual], device=device, dtype=dtype)
+    form.add_domain_integrator(intg)
+    form.set_essential_bc([np.ones(m.max_bdr_attribute()), None])
+
+    rhs = np.zeros(form.ndof)
+    b = LinearForm(h1, load_fn_3d if m.dim == 3 else load_fn).assemble()
+    b[np.asarray(h1.boundary_dofs())] = 0.0
+    rhs[: h1.ndof] = b
+    return Problem(
+        mesh=m, primal_space=h1, latent_space=dual, form=form,
+        rhs=torch.as_tensor(rhs, dtype=dtype, device=form.device), pg=None,
+        ir_order=ir_order,
     )
 
 
-def solve_dofpg(*args, **kwargs):
-    raise NotImplementedError(
-        "solve_dofpg: the dof-level PG variant (dof_pg) is not ported yet "
-        "(ROADMAP A5)"
+def solve_dofpg(
+    order: int = 2,
+    ref_levels: int = 2,
+    rule_type: int = PGStepSizeRule.CONSTANT,
+    alpha0: float = 1.0,
+    max_alpha: float = 1e4,
+    ratio: float = 1.0,
+    ratio2: float = 1.0,
+    max_pg_iter: int = 100,
+    tol: float = 1e-8,
+    verbose: bool = False,
+    n0: int = 10,
+    lin_maxiter: int = 2000,
+    dim: int = 2,
+    spatial_bound: bool = False,
+    lin_solver: str = "minres",
+    *,
+    device="cuda",
+    dtype: torch.dtype = torch.float64,
+):
+    """The LVPP outer loop on the dof-PG obstacle form, from zero; returns
+    (PGResult, Problem).  ``spatial_bound`` makes the upper bound 0.3 +
+    0.2 x, a grid-function entropy parameter on an H1 p1 space (the
+    runtime field ``ub_field``)."""
+    fields = {}
+    m = (M.make_cartesian_3d(n0, n0, n0) if dim == 3
+         else M.make_cartesian_2d(n0, n0)).uniform_refine(ref_levels)
+    upper = 0.5
+    if spatial_bound:
+        bspace = FESpace(m, 1)
+        upper = GridFunctionCoefficient(bspace, "ub_field")
+        fields["ub_field"] = torch.as_tensor(
+            bspace.project(lambda x: 0.3 + 0.2 * x[0]), dtype=dtype,
+            device=device)
+    pb = build_dofpg(order, ref_levels, n0=n0, upper=upper, dim=dim, mesh=m,
+                     device=device, dtype=dtype)
+    rule = PGStepSizeRule(rule_type, alpha0, max_alpha, ratio, ratio2)
+    nopts = NewtonOptions(
+        abs_tol=1e-9, rel_tol=0.0, max_iter=20, lin_solver=lin_solver,
+        lin_tol=1e-12, lin_maxiter=lin_maxiter,
+        preconditioner=None if lin_solver == "dense" else "jacobi",
     )
+    solver = PGSolver(
+        pb.form, rule, latent_block=1, latent_space=pb.latent_space,
+        newton_opts=nopts, max_iter=max_pg_iter, tol=tol, verbose=verbose,
+        newton_accept=1e-5,
+    )
+    x0 = torch.zeros(pb.form.ndof, dtype=dtype, device=pb.form.device)
+    res = solver.solve(x0, pb.rhs, fields=fields)
+    return res, pb
 
 
 def _primal_gmg(order: int, ref_levels: int, n0: int, dim: int = 2, *,

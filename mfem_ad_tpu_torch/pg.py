@@ -31,7 +31,7 @@ from .coefficients import GridFunctionCoefficient, ScalarFieldCoefficient
 from .convert import vector_from_numpy
 from .fespace import FESpace
 from .norms import l1_norm
-from .solvers import NewtonOptions, newton
+from .solvers import NewtonOptions, jacobi_diagonal, newton
 from .utils import profiling
 from .utils._host import to_numpy
 from .utils.checkpoint import load_checkpoint, save_checkpoint
@@ -252,9 +252,9 @@ class ADLambdaPGFunctional(ADPGFunctional):
 
 def pg_block_preconditioner(form, state):
     """SPD block-diagonal preconditioner |diag(J)|^-1 for MINRES on the
-    (u, psi) saddle system (a ``NewtonOptions.preconditioner``)."""
-    d = torch.abs(form.grad_diag(state))
-    safe = torch.where(d < 1e-30, 1.0, d)
+    (u, psi) saddle system (a ``NewtonOptions.preconditioner``), with the
+    floor of ``solvers.jacobi_diagonal``."""
+    safe = jacobi_diagonal(form.grad_diag(state))
     return lambda x: x / safe
 
 

@@ -966,12 +966,23 @@ def _make_precond(form, state, spec):
     if spec is None:
         return None
     if spec == "jacobi":
-        # |diag| keeps the preconditioner SPD on indefinite systems, so
-        # it serves MINRES as well as CG
-        d = torch.abs(form.grad_diag(state))
-        safe = torch.where(d < 1e-30, 1.0, d)
+        safe = jacobi_diagonal(form.grad_diag(state))
         return lambda v: v / safe
     return spec(form, state)
+
+
+def jacobi_diagonal(d):
+    """The Jacobi scale |d|, with 1 where |d| is at or below the dtype's
+    rounding of its largest entry (eps * max|d|).  |d| keeps the
+    preconditioner SPD on indefinite systems, so it serves MINRES as well
+    as CG.  Entries under the rounding level are numerically zero: where
+    a Fermi-Dirac mirror map saturates, the port's E*'' keeps values such
+    as 1e-20 (the JAX package's rounds them to exactly 0 and so takes 1
+    there), and dividing by them would scale those saddle rows by 1e20
+    and stall MINRES."""
+    d = torch.abs(d)
+    floor = torch.finfo(d.dtype).eps * d.max()
+    return torch.where(d <= floor, 1.0, d)
 
 
 def dense_solve(A, r):

@@ -10,7 +10,11 @@ Each option of ``NewtonOptions`` that changes the iteration, against
 - a callable ``preconditioner(form, state) -> M`` for MINRES: called once
   per Newton step, the reference's iterations and iterate;
 - ``verbose=True``: one line per residual evaluation, in the reference's
-  format.
+  format;
+- ``preconditioner="jacobi"`` on the dof-PG obstacle where the mirror map
+  saturates: the same scaling as the reference's, whose E*'' rounds to
+  exactly 0 there while the port's keeps values near 1e-23 (the port
+  takes every diagonal entry at or below eps * max|d| as zero).
 
 The problem: 0.5 g.g + 0.25 (g.g)^2 over H1 Q2 on 3x3 quads, u = 0 on the
 boundary, load 1 + x y; the singular one: diffusion on 4x4 Q1 with no
@@ -32,6 +36,7 @@ from mfem_ad_tpu.adeval import ADEval as JADEval
 from mfem_ad_tpu.fespace import FESpace as JFESpace
 from mfem_ad_tpu.forms import LinearForm as JLinearForm
 from mfem_ad_tpu.forms import NonlinearForm as JNonlinearForm
+from mfem_ad_tpu.models import obstacle as jobs
 from mfem_ad_tpu_torch import ad as pad
 from mfem_ad_tpu_torch import mesh as PM
 from mfem_ad_tpu_torch import solvers as PS
@@ -39,6 +44,7 @@ from mfem_ad_tpu_torch.adeval import ADEval as PADEval
 from mfem_ad_tpu_torch.fespace import FESpace as PFESpace
 from mfem_ad_tpu_torch.forms import LinearForm as PLinearForm
 from mfem_ad_tpu_torch.forms import NonlinearForm as PNonlinearForm
+from mfem_ad_tpu_torch.models import obstacle as pobs
 
 F64 = torch.float64
 
@@ -165,3 +171,28 @@ def test_newton_verbose_matches_jax(capsys):
         assert float(pm[2]) == float(f"{p.history[it]:.6e}")
     assert _solve("torch", BASE).history == p.history
     assert capsys.readouterr().out == ""
+
+
+def test_jacobi_matches_jax_where_the_mirror_saturates():
+    """The dof-PG obstacle (order 1, 4x4 cells) at psi = 100 on every
+    other dual dof: scale * psi = 50, where JAX's E*'' is exactly 0 and
+    the port's 0.25 exp(-50); both preconditioners take 1 there."""
+    kw = dict(order=1, ref_levels=0, n0=4)
+    jpb, ppb = jobs.build_dofpg(**kw), pobs.build_dofpg(**kw, device="cpu")
+    rng = np.random.default_rng(4)
+    nu = ppb.primal_space.ndof
+    x = np.concatenate([0.1 * rng.standard_normal(nu),
+                        rng.standard_normal(ppb.latent_space.ndof)])
+    x[nu::2] = 100.0
+    psik = 0.1 * rng.standard_normal(ppb.latent_space.ndof)
+    v = rng.standard_normal(ppb.form.ndof)
+    jf = {"alpha": jnp.asarray(1.0), "latent_k0": jnp.asarray(psik)}
+    pf = {"alpha": 1.0, "latent_k0": torch.as_tensor(psik)}
+    jst = jpb.form.grad_state(jnp.asarray(x), jf)
+    pst = ppb.form.grad_state(torch.as_tensor(x), pf)
+    d = ppb.form.grad_diag(pst)[nu::2].abs()
+    assert float(d.max()) < 1e-20 and float(d.min()) > 1e-30
+    jm = np.asarray(JS._make_precond(jpb.form, jst, "jacobi")(jnp.asarray(v)))
+    pm = PS._make_precond(ppb.form, pst, "jacobi")(torch.as_tensor(v))
+    np.testing.assert_allclose(pm.numpy(), jm, rtol=1e-12, atol=0)
+

@@ -40,6 +40,19 @@ DEV = "cpu"
 TOL_TRAJ = 1e-8  # trajectories: PG iterates
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: under the test workers'
+    contention torch's multithreaded CPU LAPACK (the SVD of
+    ``dense_solve``'s ``pinv`` fallback above all) runs up to 10x slower
+    than alone; one thread computes the same and keeps the module near
+    its time alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def rel(a, b) -> float:
     a, b = np.asarray(a), np.asarray(b)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))

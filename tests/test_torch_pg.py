@@ -30,7 +30,6 @@ from mfem_ad_tpu.models import obstacle as jobs
 from mfem_ad_tpu_torch import ad as pad
 from mfem_ad_tpu_torch import pg as ppg
 from mfem_ad_tpu_torch import solvers as PS
-from mfem_ad_tpu_torch.examples import ex4
 from mfem_ad_tpu_torch.forms import BlockNonlinearForm as PBlockForm
 from mfem_ad_tpu_torch.models import obstacle as pobs
 from mfem_ad_tpu_torch.models import poisson as ppoisson
@@ -265,11 +264,9 @@ def test_schur_and_obstacle_refusals_are_named():
     tet = pobs.build(order=1, ref_levels=0, n0=2, dim=3, geom="tet",
                      device=DEV)
     assert tet.mesh.geom == "tetrahedron"
-    for fn in (pobs.build_dofpg, pobs.solve_dofpg):
-        with pytest.raises(NotImplementedError, match="dof_pg"):
-            fn()
-    with pytest.raises(NotImplementedError, match="dof_pg"):
-        ex4.main(["--device", "cpu", "--dof-pg"])
+    # so is the dof-level PG variant (its parity: tests/test_torch_dof_pg.py)
+    dpb = pobs.build_dofpg(order=1, ref_levels=0, n0=2, device=DEV)
+    assert dpb.latent_space.fe_type == "L2" and dpb.latent_space.order == 2
     gmg = pobs._primal_gmg(1, 0, 2, device=DEV)
     with pytest.raises(ValueError, match="only serves the Schur"):
         gmg.as_preconditioner()(pb.form, None)
