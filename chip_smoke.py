@@ -77,12 +77,12 @@ main paths through their public entry points:
         the largest difference of the two solutions, one V-cycle's time;
      G2 ex4's problem at the reference defaults with the smoke flags
         (order 2, ref 3, 83,681 dofs, -rule 2 -a0 0.1 -ar 2), Schur + the
-        shifted hp-GMG, its first 5 PG iterations (of 38 to convergence,
+        shifted hp-GMG, its first 3 PG iterations (of 38 to convergence,
         equal in three whole runs): Newton iterations,
         CG per Newton step, the lambda-diff trajectory, wall time; and
         ex4's ``main`` with the smoke flags and the dense solver at order
         2 ref 0, run to convergence within the bounds;
-     G3 ex4's problem at ref 5 (1,333,121 dofs), 3 PG iterations: time per
+     G3 ex4's problem at ref 5 (1,333,121 dofs), 2 PG iterations: time per
         iteration, CG per Newton step against G2's, and one direction's
         grad_state, Schur arrays and CG;
      G4 the Schur direction against the dense direct solver, order 2 ref
@@ -125,18 +125,39 @@ main paths through their public entry points:
         with its checks;
      I2 topopt's ``main`` at its defaults (48x24 p1, 60 iterations)
         against the JAX package's numbers from a CPU run; a 256x128
-        cantilever (66,306 dofs), 10 iterations: CG per state solve and
+        cantilever (66,306 dofs), 5 iterations: CG per state solve and
         whether it reached lin_tol, sensitivity and wall per iteration;
      I3 LinearForm at 100^3 p1 hexes with a FunctionCoefficient on the
         host: the chunked path against the whole-mesh einsum, timed;
      I4 the template driver's ``main`` with -vis on the card against a
-        loopback GLVis server in a thread: the stream it receives.
+        loopback GLVis server in a thread: the stream it receives;
+  J. the multi-device layer (``parallel``: no kernel), 4 ranks spawned as
+     processes on this one card over gloo (NCCL refuses two ranks on one
+     GPU), f64, each held against the serial form on the same card:
+     J1 phase C's 512x512 neo-Hookean (526,338 dofs) and ex4's obstacle
+        at the reference defaults (83,681 dofs): energy, mult,
+        grad_state + grad_mult, grad_diag (and the obstacle's Schur
+        arrays) on ``ShardedForm`` and on the halo form that
+        ``auto_sharded`` picks and on ``HaloShardedForm`` built directly
+        to 1e-10 relative; the bytes per grad_mult from the
+        communicator (the halo's equal to ``halo_bytes_per_matvec``,
+        ShardedForm's one ndof-length all-reduce); ms per grad_mult by
+        CUDA events, serial against 4 ranks;
+     J2 test_halo.py's LVPP configuration (Schur with the active-set
+        Jacobi) at ex4's reference defaults on the halo form, capped at
+        its first Newton step, against the serial run: PG, Newton and CG
+        counts equal, iterates within 1e-8; then ``parallel.dryrun``'s
+        Newton step on the same 4 ranks;
+     J3 ``examples.par_template`` through its launcher (``--nproc 4``)
+        and ``parallel.dryrun`` through its own at 8 ranks, as child
+        processes.
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
 log also gives CUDA-event times of whole calls, host work included.
 
-Every phase checks its results and raises on failure.  Each kernel's
+Every phase checks its results and raises on failure (a rank that fails
+fails its spawn, and the script with it).  Each kernel's
 launch count is reset just before its main path (B and C for the full-W
 instantiation, D2 for the AD one, E2 for the blocked one) and read just
 after.  The last line of output is a JSON object naming the device; the
@@ -149,6 +170,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import hashlib
 import io
 import json
 import os
@@ -191,6 +213,13 @@ from mfem_ad_tpu_torch.models import (
     poisson,
 )
 from mfem_ad_tpu_torch.multigrid import GMG, build_hierarchy
+from mfem_ad_tpu_torch import parallel
+from mfem_ad_tpu_torch.parallel import (
+    HaloShardedForm,
+    ShardedForm,
+    auto_sharded,
+)
+from mfem_ad_tpu_torch.parallel.dryrun import newton_step
 from mfem_ad_tpu_torch.ops import ad_jacobian as adj
 from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
@@ -1319,14 +1348,14 @@ def pg_lines(text: str, tag: str) -> list[dict]:
     return rows
 
 
-G2_ITERS = 5  # of the 38 to convergence, equal in three whole runs
+G2_ITERS = 3  # of the 38 to convergence, equal in three whole runs
 
 
 def phase_g2(dev):
     """ex4's problem at the reference defaults with the smoke flags (order
     2, ref 3: 80x80 quads, H1 Q3 + L2 Q1, 83,681 dofs), Schur + the
-    shifted hp-GMG, its first 5 PG iterations; and ex4's ``main`` with
-    the smoke flags and the dense solver at order 2 ref 0, run to
+    shifted hp-GMG, its first G2_ITERS PG iterations; and ex4's ``main``
+    with the smoke flags and the dense solver at order 2 ref 0, run to
     convergence."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1372,11 +1401,11 @@ def phase_g2(dev):
     return cg_per_step
 
 
-G3_REFS, G3_ITERS = 5, 3  # 320x320 quads, H1 Q3 + L2 Q1: 1,333,121 dofs
+G3_REFS, G3_ITERS = 5, 2  # 320x320 quads, H1 Q3 + L2 Q1: 1,333,121 dofs
 
 
 def phase_g3(dev, g2_cg):
-    """ex4's problem at ref 5 (1,333,121 dofs), 3 PG iterations with
+    """ex4's problem at ref 5 (1,333,121 dofs), G3_ITERS PG iterations with
     tol=0: time per iteration, CG per Newton step against G2's, and the
     parts of one Schur direction."""
     profiling.reset()
@@ -1911,7 +1940,7 @@ JAX_TOPOPT = {"its": 60, "compliance": 5.501246242724507e-3, "volume": 0.5,
               "rho_min": 7.140014330108268e-10, "rho_max": 1.0,
               "saturated": 196}
 TOPOPT_RTOL = 1e-8  # the port's CPU run: 1.6e-12 from JAX's after 60 steps
-I2_N, I2_ITERS = 256, 10  # 256x128 cantilever: 32,768 elements
+I2_N, I2_ITERS = 256, 5  # 256x128 cantilever: 32,768 elements
 I3_N = 100  # 100^3 p1 hexes
 
 
@@ -2113,6 +2142,276 @@ def phase_i4(dev):
     log("phase I4 ok")
 
 
+# ---------------------------------------------------------------------------
+# J: the multi-device layer, 4 ranks on the one card over gloo (no kernel)
+# ---------------------------------------------------------------------------
+
+
+J_RANKS = 4
+J_TIMEOUT = 600.0  # seconds, for the rendezvous, a collective, a spawn
+J_MATVECS = 20  # grad_mult calls timed per form
+J_TOL = 1e-10  # J1: relative to max|serial|
+# J2: test_halo.py's LVPP configuration (Schur with the active-set Jacobi)
+# at ex4's reference defaults, capped at J2_ITERS PG iterations of
+# J2_NEWTON Newton steps each, each Schur CG at J2_CG iterations, the
+# capped Newton iterate accepted.  On an NVIDIA H100 80GB HBM3 at 700 W,
+# 2 PG iterations to convergence (7 + 4 Newton steps, 8,771 CG) took
+# 189.0 s on 4 ranks and 48.0 s serial, 2 Newton steps (1,600 CG) 36.6 s
+# and 7.7 s, 1 Newton step (800 CG) 12.0 s and 4.9 s (PERF.md, phase J)
+J2_ITERS, J2_NEWTON, J2_CG = 1, 1, 200
+J2_OPTS = dict(abs_tol=1e-9, max_iter=J2_NEWTON, lin_solver="schur",
+               lin_tol=1e-12, lin_maxiter=J2_CG)
+J2_RULE = (PGStepSizeRule.EXP, 0.1, 1e4, 2.0, 1.0)
+
+
+def j_problems(dev):
+    """J1's problems: phase C's 512x512 neo-Hookean (u 0.1/n N(0, 1)) and
+    ex4's obstacle at the reference defaults (u 0.1 N(0, 1), alpha 1,
+    latent_k0 0.1 N(0, 1)), each with a direction v ~ N(0, 1); and the
+    obstacle's Problem (J2)."""
+    f64 = torch.float64
+    form, _, _ = neohookean_ex3(dev)
+    n = form.ndof
+    cases = {"nh512": (form, seeded(n, 0.1 / HEADLINE_N, 51, f64, dev),
+                       seeded(n, 1.0, 52, f64, dev), {}, False)}
+    pb = obstacle.build(order=2, ref_levels=3, device=dev)
+    n = pb.form.ndof
+    fields = {"alpha": 1.0,
+              "latent_k0": seeded(pb.latent_space.ndof, 0.1, 55, f64, dev)}
+    cases["ex4"] = (pb.form, seeded(n, 0.1, 53, f64, dev),
+                    seeded(n, 1.0, 54, f64, dev), fields, True)
+    return cases, pb
+
+
+def j1_eval(f, u, v, fields, schur: bool, comm=None):
+    """energy, mult, grad_state + grad_mult, grad_diag and (``schur``) the
+    Schur arrays of a serial, sharded or halo form, as canonical host
+    arrays; the bytes of each collective kind in one grad_mult; CUDA-event
+    ms per grad_mult over J_MATVECS calls."""
+    halo = isinstance(f, HaloShardedForm)
+
+    def host(a):
+        return (f.canonical(a) if halo else a).cpu().numpy()
+
+    uu = f.dist_array(u.cpu().numpy()) if halo else u
+    vv = f.dist_array(v.cpu().numpy()) if halo else v
+    out = {"e": float(f.energy(uu, fields)), "r": host(f.mult(uu, fields))}
+    st = f.grad_state(uu, fields)
+    if comm is not None:
+        comm.reset()
+    y = f.grad_mult(st, vv)
+    out["bytes"] = {} if comm is None else dict(comm.bytes)
+    out["y"], out["d"] = host(y), host(f.grad_diag(st))
+    if schur:
+        arrays = solvers._schur_arrays(f, st, 1e-6, True)
+        De_inv = arrays["De_inv"]
+        if halo:  # the bands' element blocks, in element order
+            De_inv = comm.sum_(f.bands[0].band.embed(De_inv))
+            n0 = f.form.offsets[1]
+            for k in ("dshift", "safe"):
+                arrays[k] = f.canonical(f.pad_u(arrays[k]))[:n0]
+        out["De_inv"] = De_inv.cpu().numpy()
+        out["dshift"] = arrays["dshift"].cpu().numpy()
+        out["safe"] = arrays["safe"].cpu().numpy()
+    torch.cuda.synchronize()
+    if comm is not None:
+        comm.barrier()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(J_MATVECS):
+        f.grad_mult(st, vv)
+    e1.record()
+    torch.cuda.synchronize()
+    out["ms"] = e0.elapsed_time(e1) / J_MATVECS
+    return out
+
+
+def j2_run(form, pb, x0, rhs):
+    """The capped LVPP run of J2 on ``form``: (x canonical, PG iterations,
+    Newton per PG iteration, CG per PG iteration, lambda diff, wall)."""
+    from mfem_ad_tpu_torch.pg import PGSolver
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, text = run_captured(lambda: PGSolver(
+        form, PGStepSizeRule(*J2_RULE), latent_block=1,
+        latent_space=pb.latent_space, newton_opts=NewtonOptions(**J2_OPTS),
+        max_iter=J2_ITERS, tol=1e-7, verbose=True,
+        newton_accept=np.inf).solve(x0, rhs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lin = [int(m[4] or 0) for m in map(PG_LINE.search, text.splitlines())
+           if m]
+    x = form.canonical(res.x) if hasattr(form, "canonical") else res.x
+    return (x.cpu().numpy(), res.iterations, list(res.newton_iters), lin,
+            float(res.lambda_diff), wall)
+
+
+def _digest(out: dict) -> str:
+    h = hashlib.sha256()
+    for k in ("r", "y", "d"):
+        h.update(out[k].tobytes())
+    h.update(repr(out["e"]).encode())
+    return h.hexdigest()
+
+
+def j_rank(comm):
+    """One rank of phase J: J1 on both problems for ShardedForm, the halo
+    form from ``auto_sharded`` and HaloShardedForm built directly, then
+    J2's halo PG run and the dry run's Newton step.  Rank 0 returns the
+    arrays; every rank returns digests of its J1 results, its timings
+    and bytes, the dry run's result and its kernel launch counts."""
+    cases, pb = j_problems(comm.device)
+    kernels = (fj.fused_element_jacobian, adj.ad_element_jacobian,
+               bj.blocked_element_jacobian)
+    out = {}
+    for name, (form, u, v, fields, schur) in cases.items():
+        auto = auto_sharded(form, comm)
+        direct = HaloShardedForm(form, comm)
+        if not isinstance(auto, HaloShardedForm) or (
+                direct.slots != auto.slots):
+            raise AssertionError(f"J1 {name}: auto_sharded chose "
+                                 f"{type(auto).__name__}")
+        for kind, f in (("sharded", ShardedForm(form, comm)),
+                        ("halo", auto), ("halo_direct", direct)):
+            res = j1_eval(f, u, v, fields, schur, comm)
+            res["digest"] = _digest(res)
+            if comm.rank:
+                res = {k: res[k] for k in ("digest", "ms", "bytes")}
+            out[(name, kind)] = res
+        out[(name, "halo_bytes")] = auto.halo_bytes_per_matvec()
+        del auto, direct
+    hf = HaloShardedForm(pb.form, comm)
+    res = j2_run(hf, pb, hf.dist_array(np.zeros(pb.form.ndof)),
+                 hf.dist_array(pb.rhs.cpu().numpy()))
+    out["j2"] = res if comm.rank == 0 else res[1:]
+    out["dryrun"] = newton_step(comm)
+    out["launches"] = [k.launches for k in kernels]
+    out["comm"] = f"{comm.backend}, {comm.device}"
+    return out
+
+
+def rel_np(a, b) -> float:
+    """max|a - b| / max|b| of host arrays."""
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def phase_j12(dev):
+    """J1 and J2: the serial references on this card in this process, then
+    one spawn of J_RANKS ranks (gloo, every rank on this card, f64)."""
+    cases, pb = j_problems(dev)
+    serial = {name: j1_eval(form, u, v, fields, schur)
+              for name, (form, u, v, fields, schur) in cases.items()}
+    j2_serial = j2_run(pb.form, pb, torch.zeros_like(pb.rhs), pb.rhs)
+    ndofs = {name: c[0].ndof for name, c in cases.items()}
+    del cases, pb
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = parallel.spawn(j_rank, J_RANKS, device=dev, timeout=J_TIMEOUT,
+                           limit=J_TIMEOUT)
+    log(f"J spawn of {J_RANKS} ranks ({[r['comm'] for r in ranks]}): "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, ref in serial.items():
+        for kind in ("sharded", "halo", "halo_direct"):
+            got = ranks[0][(name, kind)]
+            errs = {k: rel_np(got[k], ref[k]) for k in ref
+                    if k not in ("e", "bytes", "ms")}
+            errs["e"] = abs(got["e"] - ref["e"]) / abs(ref["e"])
+            worst = max(errs.values())
+            ms = [r[(name, kind)]["ms"] for r in ranks]
+            moved = [r[(name, kind)]["bytes"] for r in ranks]
+            log(f"J1 {name} ({ndofs[name]} dofs) {kind}: relative errors "
+                f"{ {k: f'{e:.2e}' for k, e in errs.items()} }; grad_mult "
+                f"{max(ms):.4f} ms on {J_RANKS} ranks (slowest; serial "
+                f"{ref['ms']:.4f} ms); bytes per grad_mult per rank "
+                f"{moved}")
+            if not worst <= J_TOL:
+                raise AssertionError(f"J1 {name} {kind}: {worst:.3e} from "
+                                     "serial")
+            digests = [r[(name, kind)]["digest"] for r in ranks]
+            if kind == "sharded":
+                if len(set(digests)) != 1:
+                    raise AssertionError(f"J1 {name}: ShardedForm differs "
+                                         "across ranks")
+                if any(m != {"sum": 8 * ndofs[name]} for m in moved):
+                    raise AssertionError(f"J1 {name}: ShardedForm moved "
+                                         f"{moved}")
+            else:
+                want = ranks[0][(name, "halo_bytes")]
+                total = sum(m.get("exchange", 0) for m in moved)
+                if total != want or any(set(m) != {"exchange"}
+                                        for m in moved):
+                    raise AssertionError(
+                        f"J1 {name}: the halo grad_mult moved {moved}, "
+                        f"halo_bytes_per_matvec {want}")
+                log(f"J1 {name} {kind}: {total} bytes per grad_mult over "
+                    f"all ranks = halo_bytes_per_matvec")
+                if kind == "halo_direct" and digests != [
+                        r[(name, "halo")]["digest"] for r in ranks]:
+                    raise AssertionError(
+                        f"J1 {name}: the halo form built directly differs "
+                        "from auto_sharded's")
+    x_s, its_s, newton_s, lin_s, lam_s, wall_s = j2_serial
+    x_h, its_h, newton_h, lin_h, lam_h, wall_h = ranks[0]["j2"]
+    dx = float(np.abs(x_h - x_s).max())
+    log(f"J2 ex4 reference defaults on HaloShardedForm, {J_RANKS} ranks "
+        f"(caps: {J2_ITERS} PG iterations of {J2_NEWTON} Newton steps): PG "
+        f"{its_h}, Newton {newton_h}, CG per PG iteration {lin_h}, lambda "
+        f"diff {lam_h:.6e}, {wall_h:.1f} s; serial: PG {its_s}, Newton "
+        f"{newton_s}, CG {lin_s}, lambda diff {lam_s:.6e}, {wall_s:.1f} s; "
+        f"max|x halo - x serial| {dx:.3e}")
+    if (its_h, newton_h, lin_h) != (its_s, newton_s, lin_s):
+        raise AssertionError("J2: the halo run's counts differ from serial")
+    if not dx <= 1e-8 or any(r["j2"][0] != its_s for r in ranks[1:]):
+        raise AssertionError(f"J2: the iterates differ by {dx:.3e}")
+    dry = [r["dryrun"] for r in ranks]
+    log(f"J2 dryrun on the {J_RANKS} ranks: (slots, CG, |x1|) per rank "
+        f"{dry}")
+    if len(set(dry)) != 1 or not np.isfinite(dry[0][2]):
+        raise AssertionError(f"J2: the dry run's ranks disagree: {dry}")
+    launches = [sum(c) for c in zip(*(r["launches"] for r in ranks))]
+    log(f"J kernel launches in the ranks (full-W, AD, blocked): {launches}")
+    log("phase J1 J2 ok")
+
+
+J3_LINE = re.compile(r"converged=(True|False) L2 error=(\S+)")
+
+
+def run_cli(args, timeout: float) -> str:
+    """A module's command line in a child process; its output, or an
+    error with its tail when it fails."""
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                       text=True, timeout=timeout)
+    text = p.stdout + p.stderr
+    for line in p.stdout.splitlines():
+        log(f"J3 {args[0].rsplit('.', 1)[-1]} | {line}")
+    log(f"J3 {' '.join(args)}: exit {p.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if p.returncode != 0:
+        raise AssertionError(f"J3 {' '.join(args)} failed:\n{text[-3000:]}")
+    return p.stdout
+
+
+def phase_j3():
+    """par_template through its launcher at K = 4 and the dry run through
+    its own at K = 8, both at once (one after the other such launches
+    took 40-47 s each on the H100's host, mostly starting their ranks;
+    the dry run at K = 4 runs in J's spawn)."""
+    runs = [["mfem_ad_tpu_torch.examples.par_template", "--nproc",
+             str(J_RANKS)],
+            ["mfem_ad_tpu_torch.parallel.dryrun", "--nproc",
+             str(2 * J_RANKS)]]
+    with ThreadPoolExecutor(len(runs)) as ex:
+        outs = list(ex.map(lambda a: run_cli(a, J_TIMEOUT), runs))
+    m = J3_LINE.search(outs[0])
+    if not (m and m[1] == "True" and float(m[2]) < 2e-5):
+        raise AssertionError("J3: par_template did not converge")
+    if "dryrun:" not in outs[1]:
+        raise AssertionError("J3: the dry run printed no result")
+    log("phase J3 ok")
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2304,6 +2603,20 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
     log("I kernel launches (full-W, AD, blocked): "
+        f"{[k.launches for k in kernels]}")
+
+    # nor on phase J's: its ranks are processes of their own and count
+    # their own launches
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    phase_j12(dev)
+    torch.cuda.empty_cache()
+    log(f"phase_j12: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_j3()
+    log(f"phase_j3: {time.perf_counter() - t0:.1f} s")
+    log("J kernel launches in this process (full-W, AD, blocked): "
         f"{[k.launches for k in kernels]}")
 
     print(json.dumps({"kernels": [{

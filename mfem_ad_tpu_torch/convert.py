@@ -12,12 +12,19 @@ The tables of a ``DofPGIntegrator`` nest an integrator's under "inner"
 beside tuples of arrays and tuples of dicts (``wn``, ``edof_p``,
 ``edof_d``, ``static``, ``efield``); they cross leaf by leaf, the inner
 tables by the rules above.
+
+``dist_blocks_from_numpy`` and ``numpy_from_dist_blocks`` carry the halo
+layout across: the JAX package's ``HaloShardedForm`` holds a distributed
+vector as one array of K * slots entries, the port's as one slot block
+per rank (``parallel.HaloShardedForm.dist_array``), in rank order.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .utils._host import to_numpy
 
 # the planar 3D assembly's factor, consumed by a route the port does not
 # have (``element_matrices`` contracts against W0)
@@ -64,3 +71,17 @@ def tables_from_numpy(tables: dict, device, dtype: torch.dtype) -> dict:
 def vector_from_numpy(v, device, dtype: torch.dtype) -> torch.Tensor:
     """A dof or state vector as a tensor."""
     return torch.as_tensor(np.asarray(v), dtype=dtype, device=device)
+
+
+def dist_blocks_from_numpy(ud, n_ranks: int, device,
+                           dtype: torch.dtype) -> list[torch.Tensor]:
+    """A JAX halo-layout vector (length K * slots) as the port's per-rank
+    slot blocks, rank 0 first."""
+    return [vector_from_numpy(b, device, dtype)
+            for b in np.asarray(ud).reshape(n_ranks, -1)]
+
+
+def numpy_from_dist_blocks(blocks) -> np.ndarray:
+    """The port's per-rank slot blocks (rank order) as the JAX halo-layout
+    vector."""
+    return np.concatenate([to_numpy(b) for b in blocks])

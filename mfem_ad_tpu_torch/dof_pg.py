@@ -26,6 +26,8 @@ element-contiguous, so its exchange is a reshape.
 
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 from torch.func import grad, jacfwd
@@ -40,8 +42,6 @@ from .fespace import FESpace
 from .geometry import geom_factors
 from .integrator import (
     ADBlockIntegrator,
-    _gather,
-    _scatter,
     _space_gridmeta,
     qpmap,
 )
@@ -150,6 +150,7 @@ class DofPGIntegrator:
         self.tables = (self._tabulate(mesh, device) if tables is None
                        else tables)
         self.field_kinds = dict(self.inner.field_kinds)
+        self.band = self.inner.band  # the share of the element axis
 
     def _tabulate(self, mesh, device) -> dict:
         dtype = self.dtype
@@ -190,6 +191,59 @@ class DofPGIntegrator:
             "efield": tuple(efield),
         }
 
+    # -- element bands ------------------------------------------------------
+    def padded_tables(self, n_shards: int) -> dict:
+        """The tables with the element axis copy-padded to a multiple of
+        ``n_shards`` (the inner integrator's ``padded_tables``; zero nodal
+        weights on the padded elements)."""
+        t = self.tables
+        ne = t["wn"][0].shape[0]
+        pad = (-ne) % n_shards
+        inner = self.inner.padded_tables(n_shards)
+        if pad == 0:
+            return {**t, "inner": inner}
+
+        def padel(a):
+            return torch.cat([a, a[:1].expand((pad,) + tuple(a.shape[1:]))])
+
+        return {
+            "inner": inner,
+            "wn": tuple(torch.cat([w, w.new_zeros((pad,) + w.shape[1:])])
+                        for w in t["wn"]),
+            "edof_p": tuple(padel(e) for e in t["edof_p"]),
+            "edof_d": tuple(padel(e) for e in t["edof_d"]),
+            "static": tuple({k: padel(v) for k, v in p.items()}
+                            for p in t["static"]),
+            "efield": tuple({k: (padel(ed), phi) for k, (ed, phi) in f.items()}
+                            for f in t["efield"]),
+        }
+
+    def band_view(self, comm):
+        """This integrator restricted to rank ``comm.rank``'s band of the
+        element axis, dof vectors replicated (``integrator.Band``'s shard
+        mode; the halo layout needs grid metadata, which a DofPG
+        integrator does not carry)."""
+        t = self.padded_tables(comm.world_size)
+        view = copy.copy(self)
+        view.inner = self.inner.band_view(comm)
+        view.band = view.inner.band
+        lo, n = view.band.lo, view.band.ne_loc
+
+        def cut(a):
+            return a[lo:lo + n]
+
+        view.tables = {
+            "inner": view.inner.tables,
+            "wn": tuple(cut(w) for w in t["wn"]),
+            "edof_p": tuple(cut(e) for e in t["edof_p"]),
+            "edof_d": tuple(cut(e) for e in t["edof_d"]),
+            "static": tuple({k: cut(v) for k, v in p.items()}
+                            for p in t["static"]),
+            "efield": tuple({k: (cut(ed), phi) for k, (ed, phi) in f.items()}
+                            for f in t["efield"]),
+        }
+        return view
+
     # -- dof exchange -----------------------------------------------------
     def _gather_pair(self, i, u, dual: bool):
         """Nodal values [ne, nd, v] of a pair's flat byNODES dof block."""
@@ -198,14 +252,14 @@ class DofPGIntegrator:
         if not dual:
             return self.inner.gather(i, u)
         ds = self.dual_spaces[i]
-        return _gather(u, ("l2",), ds.vdim, ds.nd, None)
+        return self.band.gather(u, ("l2",), ds.vdim, ds.nd, None)
 
     def _scatter_pair(self, i, re, dual: bool):
         """Adjoint of ``_gather_pair``: [ne, nd, v] -> flat [v*nds]."""
         if not dual:
             return self.inner.scatter(i, re)
         ds = self.dual_spaces[i]
-        return _scatter(re, ("l2",), ds.vdim, ds.nd, None)
+        return self.band.scatter(re, ("l2",), ds.vdim, ds.nd, None)
 
     def _entropy_params_nodes(self, i, fields):
         """Per-node entropy parameters, name -> [ne, nd, k]: the static
@@ -222,7 +276,8 @@ class DofPGIntegrator:
                 continue
             _, _, pv, nd_f, meta = kind
             ed, phi = t["efield"][i][name]
-            ue = _gather(val, meta, pv, nd_f, ed)  # [ne, nd_f, pv]
+            # [ne, nd_f, pv]
+            ue = self.band.gather(val, meta, pv, nd_f, ed, dofs=False)
             p[name] = torch.einsum("jd,edv->ejv", phi, ue)
         return p
 

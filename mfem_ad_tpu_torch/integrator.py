@@ -36,6 +36,7 @@ element-varying shape tensors and contract them by einsum.
 
 from __future__ import annotations
 
+import copy
 from functools import lru_cache
 
 import numpy as np
@@ -229,6 +230,138 @@ def _scatter(re, meta, vdim: int, nd: int, einv):
             out[(slice(None),) + sl].add_(
                 vals[:, d, :].T.reshape((vdim,) + shape))
     return out.reshape(-1)
+
+
+def _halo_local_meta(meta, K: int):
+    """A rank's grid meta under a K-way band partition of the outer grid
+    axis (dof-grid dim 0: y in 2D, x in 3D, the axis the element order is
+    outer-major in).  Rank k owns the cell band [k*n_loc, (k+1)*n_loc);
+    its dof block spans n_loc*p + 1 planes, the last the interface plane
+    owned by rank k+1 (the ghost of the owner-zero layout; the last rank
+    owns its last plane)."""
+    kind, dims, ndims, offs, p = meta
+    if len(dims) == 2:
+        nx, ny = dims  # 2D element order e = j*nx + i: outer = ny
+        if ny % K:
+            raise ValueError(f"halo partition needs ny % K == 0 ({ny}, {K})")
+        nl = ny // K
+        ldims = (nx, nl)
+    else:
+        nx, ny, nz = dims  # 3D element order: outer = nx
+        if nx % K:
+            raise ValueError(f"halo partition needs nx % K == 0 ({nx}, {K})")
+        nl = nx // K
+        ldims = (nl, ny, nz)
+    lndims = (nl * p + 1,) + tuple(ndims[1:])
+    return (kind, ldims, lndims, offs, p)
+
+
+class Band:
+    """One rank's contiguous share of an integrator's element axis, and the
+    dof exchange that goes with it (the JAX package's ("shard", ...) and
+    ("halo", ...) modes).
+
+    Shard mode: dof vectors are replicated.  The gather runs the whole
+    serial gather, extends the element range with copies of element 0 to
+    ``ne_loc * K`` (the zero-weight copy-pad of ``padded_tables``) and
+    takes the band; the scatter embeds the band into the whole element
+    range, drops the pad and runs the whole serial scatter, and the
+    caller's sum over the ranks completes it.  Without a dof grid the
+    gather indexes the band's own ``edof``.
+
+    Halo mode (``halo=True``): a dof block is the rank's slot block of the
+    owner-zero layout (``_halo_local_meta``).  The gather fills the ghost
+    plane with the next rank's first plane, then runs the serial gather on
+    the local grid; the scatter runs the local scatter, sends the ghost
+    plane's sum to its owner (the next rank's first plane) and zeros the
+    ghost again.  L2 blocks are element-local and exchange nothing.
+    Runtime fields stay replicated and take the shard mode.
+
+    ``comm`` None is the serial integrator's band: one rank, every element,
+    the serial gather and scatter unchanged.
+    """
+
+    def __init__(self, comm, ne_true: int, halo: bool = False):
+        self.comm = comm
+        self.K = 1 if comm is None else comm.world_size
+        self.halo = halo
+        self.ne_true = int(ne_true)
+        self.ne_loc = -(-self.ne_true // self.K)
+        self.lo = 0 if comm is None else comm.rank * self.ne_loc
+
+    def take(self, a: torch.Tensor) -> torch.Tensor:
+        """The band of an element-leading array of the true element count,
+        copy-padded with element 0 past its end."""
+        lo, n = self.lo, self.ne_loc
+        hi = min(lo + n, self.ne_true)
+        if hi - lo == n:
+            return a[lo:hi]
+        return torch.cat([a[lo:hi],
+                          a[:1].expand((n - max(hi - lo, 0),) + a.shape[1:])])
+
+    def embed(self, a: torch.Tensor) -> torch.Tensor:
+        """The band's element values placed in the true element range
+        (zero elsewhere; the copy-pad dropped)."""
+        if self.K == 1:
+            return a
+        full = a.new_zeros((self.ne_loc * self.K,) + tuple(a.shape[1:]))
+        full[self.lo:self.lo + self.ne_loc] = a
+        return full[:self.ne_true]
+
+    def gather(self, u, meta, vdim: int, nd: int, edof, dofs: bool = True):
+        """Element dofs [ne_loc, nd, vdim] of the band: ``dofs`` False for a
+        replicated runtime field in halo mode."""
+        if self.halo and dofs:
+            if meta[0] == "l2":
+                return _gather(u, meta, vdim, nd, None)
+            lmeta = _halo_local_meta(meta, self.K)
+            U = u.reshape((vdim,) + tuple(lmeta[2]))
+            # the next rank's first (owned) plane into the ghost, which
+            # holds zero (the last rank receives zeros)
+            incoming = self.comm.shift(U[:, 0], -1)
+            U = torch.cat([U[:, :-1], (U[:, -1] + incoming)[:, None]], dim=1)
+            return _gather(U.reshape(-1), lmeta, vdim, nd, None)
+        if meta is None:
+            return _gather(u, None, vdim, nd, edof)  # the band's edof
+        if self.K == 1:
+            return _gather(u, meta, vdim, nd, None)
+        return self.take(_gather(u, meta, vdim, nd, None))
+
+    def scatter(self, re, meta, vdim: int, nd: int, einv):
+        """Adjoint of ``gather`` (dof blocks): the band's sum in the halo
+        layout, or its share of the replicated vector before the caller's
+        sum over the ranks."""
+        if not self.halo:
+            return _scatter(self.embed(re), meta, vdim, nd, einv)
+        if meta[0] == "l2":
+            return _scatter(re, meta, vdim, nd, None)
+        comm = self.comm
+        lmeta = _halo_local_meta(meta, self.K)
+        G = _scatter(re, lmeta, vdim, nd, None).reshape(
+            (vdim,) + tuple(lmeta[2]))
+        recv = comm.shift(G[:, -1], 1)  # the ghost's sum to its owner
+        first = (G[:, 0] + recv)[:, None]
+        last = G[:, -1:]
+        if comm.rank != comm.world_size - 1:
+            last = torch.zeros_like(last)
+        return torch.cat([first, G[:, 1:-1], last], dim=1).reshape(-1)
+
+
+def _per_element(t: dict, fn) -> dict:
+    """The tables ``t`` with ``fn(a, shared)`` applied to every
+    element-leading table: B, w and the statics (``shared``: a leading 1
+    is an element-shared table), edof and the fields' edof.  The other
+    tables (contraction factors, ``einv``, the fields' shape tables) are
+    the same for every element and stay."""
+    out = dict(t)
+    out.update(
+        B=tuple(fn(b, True) for b in t["B"]),
+        w=fn(t["w"], True),
+        edof=tuple(fn(e, False) for e in t["edof"]),
+        static={k: fn(v, True) for k, v in t["static"].items()},
+        field_edof={k: fn(v, False) for k, v in t["field_edof"].items()},
+    )
+    return out
 
 
 def _edof_inverse(edof: np.ndarray, nds: int) -> np.ndarray:
@@ -443,6 +576,8 @@ class ADBlockIntegrator(nn.Module):
         if tables is None:
             tables = self._tabulate(device)
         self._install(tables)
+        # the share of the element axis: every element in serial
+        self.band = Band(None, tables["edof"][0].shape[0])
 
     # ------------------------------------------------------------------
     def _tabulate(self, device) -> dict:
@@ -586,6 +721,56 @@ class ADBlockIntegrator(nn.Module):
                 layout[key] = ("tensor", key)
         self._layout = layout
 
+    def padded_tables(self, n_shards: int) -> dict:
+        """The tables with the element axis copy-padded to a multiple of
+        ``n_shards``: padded elements repeat element 0 with zero quadrature
+        weight, so their contributions vanish while the energy stays in its
+        domain (zero inputs could leave it).  A shared ``w`` is materialized
+        per element; the contraction factors, ``einv`` (its indices address
+        the true element slots) and the fields' shape tables stay as they
+        are."""
+        t = self.tables
+        ne = t["edof"][0].shape[0]
+        pad = (-ne) % n_shards
+        if pad == 0:
+            return t
+
+        def padel(a, shared):
+            if shared and a.shape[0] == 1:
+                return a
+            return torch.cat([a, a[:1].expand((pad,) + tuple(a.shape[1:]))])
+
+        out = _per_element(t, padel)
+        w = t["w"].expand(ne, t["w"].shape[1])
+        out["w"] = torch.cat([w, w.new_zeros(pad, w.shape[1])])
+        return out
+
+    def band_view(self, comm, halo: bool = False):
+        """This integrator restricted to rank ``comm.rank``'s contiguous
+        band of the element axis, with the shard (replicated dof vectors)
+        or, with ``halo``, the halo dof exchange (see ``Band``).  The view
+        shares the replicated tables (contraction factors, ``einv``, the
+        fields' shape tables) and slices the element-leading ones of
+        ``padded_tables(comm.world_size)``; in halo mode the element count
+        must divide."""
+        K = comm.world_size
+        ne = self.tables["edof"][0].shape[0]
+        if halo and ne % K:
+            raise ValueError(
+                f"element count {ne} not divisible by the rank count {K}")
+        band = Band(comm, ne, halo)
+        lo, n = band.lo, band.ne_loc
+        bt = _per_element(
+            self.padded_tables(K),
+            lambda a, shared: a if shared and a.shape[0] == 1
+            else a[lo:lo + n])
+        view = copy.copy(self)
+        object.__setattr__(view, "_buffers", {})
+        object.__setattr__(view, "_non_persistent_buffers_set", set())
+        view._install(bt)
+        view.band = band
+        return view
+
     @property
     def tables(self) -> dict:
         out = {}
@@ -619,8 +804,9 @@ class ADBlockIntegrator(nn.Module):
                 phi = t["field"][name]
                 u = torch.as_tensor(fields[name], dtype=w.dtype,
                                     device=w.device)
-                ue = _gather(u, meta, vdim, nd_f,
-                             t["field_edof"][name])  # [ne, nd, vdim]
+                # [ne, nd, vdim]; fields stay replicated
+                ue = self.band.gather(u, meta, vdim, nd_f,
+                                      t["field_edof"][name], dofs=False)
                 p[name] = torch.einsum("qd,edv->eqv", phi, ue)
             else:
                 v = torch.as_tensor(fields[name], dtype=w.dtype,
@@ -630,13 +816,13 @@ class ADBlockIntegrator(nn.Module):
 
     def gather(self, s: int, u):
         """Element dofs of block s: [ne, nd, vdim] (byNODES layout)."""
-        return _gather(u, self._gridmeta[s], self.vdim[s], self.nd[s],
-                       self.tables["edof"][s])
+        return self.band.gather(u, self._gridmeta[s], self.vdim[s],
+                                self.nd[s], self.tables["edof"][s])
 
     def scatter(self, s: int, re):
         """Sum element values [ne, nd, vdim] into block-s dofs."""
-        return _scatter(re, self._gridmeta[s], self.vdim[s], self.nd[s],
-                        self.tables["einv"].get(s))
+        return self.band.scatter(re, self._gridmeta[s], self.vdim[s],
+                                 self.nd[s], self.tables["einv"].get(s))
 
     def node_sum(self, s: int, vals):
         """Per-node values [ne, nd, *k] of block s summed over the elements
@@ -646,8 +832,8 @@ class ADBlockIntegrator(nn.Module):
         k = tuple(vals.shape[2:])
         flat = vals.reshape(ne, nd, -1)
         width = flat.shape[-1]
-        out = _scatter(flat, self._gridmeta[s], width, nd,
-                       self.tables["einv"].get(s))
+        out = self.band.scatter(flat, self._gridmeta[s], width, nd,
+                                self.tables["einv"].get(s))
         return out.reshape(width, -1).T.reshape((-1,) + k)
 
     def x_qp(self, ublocks):

@@ -254,7 +254,8 @@ def pg_block_preconditioner(form, state):
     """SPD block-diagonal preconditioner |diag(J)|^-1 for MINRES on the
     (u, psi) saddle system (a ``NewtonOptions.preconditioner``), with the
     floor of ``solvers.jacobi_diagonal``."""
-    safe = jacobi_diagonal(form.grad_diag(state))
+    safe = jacobi_diagonal(form.grad_diag(state),
+                           getattr(form, "pmax", None))
     return lambda x: x / safe
 
 
@@ -280,6 +281,10 @@ class PGSolver:
     instead of stopping (the PG iteration re-solves against the new psi_k
     every step, so a bounded inner error perturbs the fixed point rather
     than poisoning it).
+
+    The loop runs unchanged on a ``parallel.ShardedForm`` and a
+    ``parallel.HaloShardedForm`` (whose latent block it reads through
+    ``canonical``); checkpoints are written by single-process runs only.
     """
 
     def __init__(
@@ -347,6 +352,21 @@ class PGSolver:
         converged = False
         it = 0
         start_it = 0
+        distributed = getattr(getattr(self.form, "comm", None),
+                              "world_size", 1) > 1
+        if distributed and self.checkpoint_path is not None:
+            raise ValueError(
+                "checkpoints of a distributed form are not written: every "
+                "rank would write the same file")
+        if hasattr(self.form, "canonical"):
+            # a halo form's latent block lives in its ranks' slot blocks:
+            # extracted through the canonical layout once per outer
+            # iteration (one all-reduce); the fields stay canonical
+            def latent_of(xv):
+                return self.form.canonical(xv)[lo:hi]
+        else:
+            def latent_of(xv):
+                return xv[lo:hi]
         if resume and self.checkpoint_path is not None:
             state = self._resume()
             if state is not None:
@@ -357,7 +377,7 @@ class PGSolver:
         for it in range(start_it, self.max_iter):
             t_it = time.perf_counter()
             alpha = self.rule.get(it)
-            psik = x[lo:hi]
+            psik = latent_of(x)
             fields["alpha"] = alpha
             fields["latent_k0"] = psik
             with profiling.phase("pg/newton"):
@@ -382,7 +402,7 @@ class PGSolver:
                         )
                     break
             x = res.x
-            lam = (x[lo:hi] - psik) / alpha
+            lam = (latent_of(x) - psik) / alpha
             if lam_prev is not None:
                 with profiling.phase("pg/lambda_norm"):
                     lam_diff = float(

@@ -35,7 +35,7 @@ def _safe_div(num, den):
 
 
 def cg(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
-       stall_window=200):
+       stall_window=200, dot=None, norm=None):
     """Preconditioned CG with division guards and a normalized RHS.
 
     Solves for b/||b|| so the monitored quantities stay O(1); every
@@ -49,9 +49,15 @@ def cg(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
     loop that stops exactly on time; the host reads the test back every
     ``_CHECK_EVERY`` iterations.
 
+    ``dot`` and ``norm`` (default ``torch.dot`` and the 2-norm) are the
+    inner product and norm of the vectors: a distributed form's own
+    (``HaloShardedForm``), whose scalars every rank gets alike.
+
     Returns (x, iterations).
     """
-    norm_b = torch.linalg.vector_norm(b)
+    dot = dot or torch.dot
+    norm = norm or torch.linalg.vector_norm
+    norm_b = norm(b)
     bsafe = torch.where(norm_b == 0, 1.0, norm_b)
     bn = b / bsafe
     if M is None:
@@ -63,8 +69,8 @@ def cg(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
     r = bn - matvec(x)
     z = M(r)
     p = z
-    gamma = torch.dot(r, z)
-    rs = torch.dot(r, r)
+    gamma = dot(r, z)
+    rs = dot(r, r)
     best = rs
     mark = rs
     stall = torch.zeros((), dtype=torch.bool, device=b.device)
@@ -74,15 +80,15 @@ def cg(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
         if i % _CHECK_EVERY == 0 and not bool(active):
             break
         Ap = matvec(p)
-        alpha = _safe_div(gamma, torch.dot(p, Ap))
+        alpha = _safe_div(gamma, dot(p, Ap))
         x = torch.where(active, x + alpha * p, x)
         r = torch.where(active, r - alpha * Ap, r)
         z = M(r)
-        gamma_new = torch.dot(r, z)
+        gamma_new = dot(r, z)
         beta = _safe_div(gamma_new, gamma)
         p = torch.where(active, z + beta * p, p)
         gamma = torch.where(active, gamma_new, gamma)
-        rs = torch.dot(r, r)
+        rs = dot(r, r)
         best = torch.where(active, torch.minimum(best, rs), best)
         at_window = (i + 1) % window == 0
         stall = torch.where(
@@ -95,7 +101,7 @@ def cg(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
 
 
 def gmres(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
-          restart=50):
+          restart=50, dot=None, norm=None):
     """Restarted, left-preconditioned GMRES with Givens rotations and
     guarded divisions.
 
@@ -105,12 +111,16 @@ def gmres(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
     norm is a happy breakdown that ends the cycle, and a zero denominator
     anywhere stops progress instead of poisoning the iterate.  A restart
     cycle that improves the residual by less than 0.1% ends the solve.
+    ``dot`` (default ``torch.matmul``: the Gram-Schmidt products V @ w)
+    and ``norm`` are a distributed form's, as in ``cg``.
 
     Returns (x, iterations).
     """
     dt, dev = b.dtype, b.device
     n = b.shape[0]
-    norm_b = torch.linalg.vector_norm(b)
+    dot = dot or torch.matmul
+    norm = norm or torch.linalg.vector_norm
+    norm_b = norm(b)
     bscale = torch.where(norm_b == 0, 1.0, norm_b)
     bn = b / bscale
     if M is None:
@@ -122,7 +132,7 @@ def gmres(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
     def cycle(x):
         """One Arnoldi cycle from iterate x; returns (x', res, its)."""
         r0 = M(bn - matvec(x))
-        beta = torch.linalg.vector_norm(r0)
+        beta = norm(r0)
         V = torch.zeros((m + 1, n), dtype=dt, device=dev)
         V[0] = _safe_div(r0, beta)
         H = torch.zeros((m + 1, m), dtype=dt, device=dev)
@@ -135,11 +145,11 @@ def gmres(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
         while j < m and res > target:
             w = M(matvec(V[j]))
             # CGS2: classical Gram-Schmidt, twice (orthogonality to ~eps)
-            h = V[:j + 1] @ w
+            h = dot(V[:j + 1], w)
             w = w - h @ V[:j + 1]
-            h2 = V[:j + 1] @ w
+            h2 = dot(V[:j + 1], w)
             w = w - h2 @ V[:j + 1]
-            hn = torch.linalg.vector_norm(w)
+            hn = norm(w)
             hcol = torch.zeros(m + 1, dtype=dt, device=dev)
             hcol[:j + 1] = h + h2
             hcol[j + 1] = hn
@@ -182,7 +192,7 @@ def gmres(matvec, b, x0=None, M=None, tol=1e-10, atol=0.0, maxiter=1000,
 
 
 def minres(matvec, b, x0=None, M=None, tol=1e-10, maxiter=1000,
-           stall_window=200):
+           stall_window=200, dot=None, norm=None):
     """Preconditioned MINRES (Paige-Saunders) for symmetric, possibly
     indefinite systems; ``M`` must be SPD.  Stops when the residual
     estimate phibar <= tol*||b||, after ``maxiter`` iterations, or at the
@@ -191,16 +201,18 @@ def minres(matvec, b, x0=None, M=None, tol=1e-10, maxiter=1000,
 
     The loop state stays on the device and is updated only while the
     stopping test holds, as in ``cg``; the host reads the test back every
-    ``_CHECK_EVERY`` iterations.
+    ``_CHECK_EVERY`` iterations.  ``dot`` and ``norm`` as in ``cg``.
 
     Returns (x, iterations).
     """
     dt, dev = b.dtype, b.device
+    dot = dot or torch.dot
+    norm = norm or torch.linalg.vector_norm
     if M is None:
         M = lambda v: v  # noqa: E731
     x = torch.zeros_like(b) if x0 is None else x0
     tiny = torch.finfo(dt).tiny
-    target = tol * torch.clamp(torch.linalg.vector_norm(b), min=1e-30)
+    target = tol * torch.clamp(norm(b), min=1e-30)
     window = maxiter + 1 if stall_window is None else min(stall_window, maxiter)
 
     def scalar(v):
@@ -208,7 +220,7 @@ def minres(matvec, b, x0=None, M=None, tol=1e-10, maxiter=1000,
 
     r1 = b - matvec(x)
     y = M(r1)
-    beta = torch.sqrt(torch.abs(torch.dot(r1, y)))
+    beta = torch.sqrt(torch.abs(dot(r1, y)))
     r2 = r1
     oldb, dbar, epsln = scalar(0.0), scalar(0.0), scalar(0.0)
     phibar, cs, sn = beta, scalar(-1.0), scalar(0.0)
@@ -226,10 +238,10 @@ def minres(matvec, b, x0=None, M=None, tol=1e-10, maxiter=1000,
         yv = matvec(v)
         if i > 0:
             yv = yv - (beta / torch.where(oldb == 0, 1.0, oldb)) * r1
-        alfa = torch.dot(v, yv)
+        alfa = dot(v, yv)
         yv = yv - (alfa / bsafe) * r2
         yn = M(yv)
-        beta_n = torch.sqrt(torch.abs(torch.dot(yv, yn)))
+        beta_n = torch.sqrt(torch.abs(dot(yv, yn)))
         delta = cs * dbar + sn * alfa
         gbar = sn * dbar - cs * alfa
         gamma = torch.sqrt(gbar * gbar + beta_n * beta_n)
@@ -261,14 +273,18 @@ def minres(matvec, b, x0=None, M=None, tol=1e-10, maxiter=1000,
 # ---------------------------------------------------------------------------
 
 
-def _lumped_latent(form, intg, Hq, reg: float, out: dict):
+def _ident(x):
+    return x
+
+
+def _lumped_latent(form, intg, Hq, reg: float, out: dict, psum=_ident):
     """The node-block lumped latent of a latent space that couples across
-    elements (ex5's H1^dim): per scalar node the vdim x vdim diagonal block
-    of D (scalar lumping is badly wrong for anisotropic entropies: the
+    elements (ex5's H1^dim latent): per scalar node the vdim x vdim diagonal
+    block of D (scalar lumping is badly wrong for anisotropic entropies: the
     Hellinger E*'' goes rank-deficient along psi near saturation) and its
     regularized inverse ``Dblk_inv`` [nds, vdim, vdim].  The node sums go
     through the latent space's own dof exchange, so their order is
-    fixed."""
+    fixed; ``psum`` completes them across ranks."""
     lb = len(form.offsets) - 2
     sp_l = form.spaces[lb]
     vl, ndl = sp_l.vdim, sp_l.nd
@@ -276,7 +292,7 @@ def _lumped_latent(form, intg, Hq, reg: float, out: dict):
     ne = De.shape[0]
     De4 = De.reshape(ne, vl, ndl, vl, ndl)
     node_blocks = torch.diagonal(De4, dim1=2, dim2=4).permute(0, 3, 1, 2)
-    Dblk = intg.node_sum(lb, node_blocks)  # [nds, vl, vl]
+    Dblk = psum(intg.node_sum(lb, node_blocks))  # [nds, vl, vl]
     eye = torch.eye(vl, dtype=De.dtype, device=De.device)
     tr = torch.diagonal(Dblk, dim1=1, dim2=2).sum(-1) / vl
     shift = torch.clamp(reg * tr.abs().max(), min=1e-30)
@@ -291,16 +307,46 @@ def _schur_arrays(form, state, reg: float, jacobi: bool,
     ``jacobi``, the condensed Jacobi diagonal ``safe`` and the reaction
     diagonal ``dshift`` = diag(C D^-1 C^T) on the primal block (zero at
     essential dofs), the shift of the V-cycle (D^-1 the node-block
-    inverse when ``lumped``)."""
-    intg, Hq = form.integrators[0], state[0]
-    t = intg.tables
+    inverse when ``lumped``).  A distributed form computes them itself
+    (``schur_arrays``, through ``_schur_arrays_core`` with its
+    collectives)."""
+    if hasattr(form, "schur_arrays"):
+        return form.schur_arrays(state, reg, jacobi, lumped)
+    return _schur_arrays_core(form, form.integrators[0], state[0], reg,
+                              jacobi, lumped, SchurOps(form, state))
+
+
+class SchurOps:
+    """What ``_schur_arrays_core`` needs of a form beyond one integrator's
+    element blocks, in the form's own vector layout: ``diag()`` (|diag(J)|),
+    the essential mask ``ess`` and ``usplit`` (the primal block of a form
+    vector); and the collectives ``psum`` (completes a node scatter across
+    ranks), ``pmax`` (a maximum across ranks) and ``globalize`` (the band's
+    ``De_inv`` into the form's layout).  The defaults are a serial form's:
+    identities, and ``v[:n0]``."""
+
+    def __init__(self, form, state, psum=_ident, pmax=_ident,
+                 globalize=_ident, usplit=None):
+        self.form, self.state, self.ess = form, state, form.ess_mask
+        self.psum, self.pmax, self.globalize = psum, pmax, globalize
+        n0 = int(form.offsets[-2])
+        self.usplit = usplit or (lambda v: v[:n0])
+
+    def diag(self):
+        return torch.abs(self.form.grad_diag(self.state))
+
+
+def _schur_arrays_core(form, intg, Hq, reg: float, jacobi: bool,
+                       lumped: bool, ops: SchurOps):
+    """The array math of ``_schur_arrays`` on one integrator's elements:
+    the serial form's, or a rank's band, with the form's ``ops``."""
     lb = len(form.offsets) - 2
+    t = intg.tables
     out = {}
     if lumped:
-        _lumped_latent(form, intg, Hq, reg, out)
+        _lumped_latent(form, intg, Hq, reg, out, ops.psum)
         if jacobi:
-            _schur_jacobi(form, intg, Hq, torch.abs(form.grad_diag(state)),
-                          out)
+            _schur_jacobi(form, intg, Hq, out, None, ops)
         return out
     De = -intg.element_matrices(Hq, lb, lb)  # [ne, ndl, ndl]
     ndl = De.shape[1]
@@ -312,25 +358,26 @@ def _schur_arrays(form, state, reg: float, jacobi: bool,
     # (the JAX package measured reg = 1e-10 against a dense solve: relative
     # step error 1.1e+2; reg = 1e-6 with one refinement pass: 4e-5).  The
     # absolute mass-scaled floor guards blocks that flush to exactly zero.
-    dmax = torch.max(torch.abs(De))
+    dmax = ops.pmax(torch.max(torch.abs(De)))
     eye = torch.eye(ndl, dtype=De.dtype, device=De.device)
     Bl = t["B"][lb][..., 0]  # [1|ne, nq, ndl] latent VALUE shapes
     Me = torch.einsum("eqd,eqk,eq->edk", Bl, Bl, t["w"])
-    out["De_inv"] = torch.linalg.inv(De + (reg * dmax) * eye + 1e-20 * Me)
+    De_inv = torch.linalg.inv(De + (reg * dmax) * eye + 1e-20 * Me)
+    out["De_inv"] = ops.globalize(De_inv)
     if jacobi:
-        _schur_jacobi(form, intg, Hq, torch.abs(form.grad_diag(state)), out)
+        _schur_jacobi(form, intg, Hq, out, De_inv, ops)
     return out
 
 
-def _schur_jacobi(form, intg, Hq, d_full, out: dict):
+def _schur_jacobi(form, intg, Hq, out: dict, De_inv, ops: SchurOps):
     """diag(S) = diag(A) + diag(C D^-1 C^T) as ``safe``, and the reaction
     diagonal diag(C D^-1 C^T) (zero at essential dofs) as ``dshift``; the
     second term dominates as alpha grows (D ~ E*''/alpha -> 0 on the
-    active set)."""
+    active set).  ``De_inv`` is the integrator's own (the band's on a
+    rank); the node-block ``Dblk_inv`` is global."""
     t = intg.tables
     lb = len(form.offsets) - 2
     ub = lb - 1
-    n0 = int(form.offsets[lb])
     Ce = intg.element_matrices(Hq, ub, lb)  # [ne, nde_u, nde_l]
     ne = Ce.shape[0]
     sp_u = form.spaces[ub]
@@ -341,13 +388,44 @@ def _schur_jacobi(form, intg, Hq, d_full, out: dict):
         be = out["Dblk_inv"][t["edof"][lb]]  # [ne, ndl, vl, vl]
         dS = torch.einsum("eivd,edvw,eiwd->ei", Ce4, be, Ce4)
     else:
-        dS = torch.einsum("eij,ejk,eik->ei", Ce, out["De_inv"], Ce)
+        dS = torch.einsum("eij,ejk,eik->ei", Ce, De_inv, Ce)
     # byNODES flat rows (v, d) = v*nd + d -> [ne, nd, vdim] to scatter
     dS3 = dS.reshape(ne, sp_u.vdim, sp_u.nd).permute(0, 2, 1)
-    dS_nodes = intg.scatter(ub, dS3)
-    d = d_full[:n0] + dS_nodes
-    out["dshift"] = torch.where(form.ess_mask[:n0], 0.0, dS_nodes)
+    dS_nodes = ops.psum(intg.scatter(ub, dS3))
+    d = ops.usplit(ops.diag()) + dS_nodes
+    out["dshift"] = torch.where(ops.usplit(ops.ess), 0.0, dS_nodes)
     out["safe"] = torch.where(d < 1e-30, 1.0, d)
+
+
+def _schur_blocks(form, De_inv):
+    """(split, pad_u, pad_p, join, Dinv) of the Schur reduction: the
+    primal and latent blocks of a form vector, the embeddings of each
+    block, and the element-local latent inverse D^-1.  A distributed form
+    (``HaloShardedForm``) gives its own, on its slot blocks."""
+    if hasattr(form, "split_u_p"):
+        return (form.split_u_p, form.pad_u, form.pad_p, form.join_u_p,
+                form.make_latent_dinv(De_inv))
+    ne, ndl = De_inv.shape[0], De_inv.shape[1]
+    n0 = int(form.offsets[-2])
+    n1 = form.ndof - n0
+
+    def split(v):
+        return v[:n0], v[n0:]
+
+    def pad_u(v):
+        return torch.cat([v, torch.zeros(n1, dtype=v.dtype, device=v.device)])
+
+    def pad_p(w):
+        return torch.cat([torch.zeros(n0, dtype=w.dtype, device=w.device), w])
+
+    def join(a, b):
+        return torch.cat([a, b])
+
+    def Dinv(w):  # L2 dofs are element-contiguous: a pure reshape
+        return torch.einsum("eij,ej->ei", De_inv, w.reshape(ne, ndl)
+                            ).reshape(-1)
+
+    return split, pad_u, pad_p, join, Dinv
 
 
 def schur_solve(form, state, r, tol: float, maxiter: int, reg: float = 1e-6,
@@ -368,6 +446,11 @@ def schur_solve(form, state, r, tol: float, maxiter: int, reg: float = 1e-6,
     saturates; ``refine`` passes of iterative refinement against the true
     Jacobian remove the O(reg) direction error.
 
+    On a ``HaloShardedForm`` every block operation is local to the rank's
+    slot blocks and the CG's inner products are the form's; the V-cycle
+    works on canonical vectors, so the halo form takes the Jacobi
+    diagonal.
+
     Returns (dx, CG iterations summed over the solve and its refinement
     passes).  A latent space that is not L2 couples across elements and
     takes ``lumped_schur_solve`` instead (``newton`` chooses by the
@@ -383,29 +466,20 @@ def schur_solve(form, state, r, tol: float, maxiter: int, reg: float = 1e-6,
             f"lin_solver='schur' takes a multigrid.PGSchurGMG "
             f"preconditioner (or none, or 'jacobi'), not {type(fp).__name__}"
         )
+    if fp is not None and hasattr(form, "split_u_p"):
+        raise ValueError(
+            "the primal GMG works on canonical vectors; a HaloShardedForm "
+            "takes the Jacobi-preconditioned Schur direction")
     arrays = _schur_arrays(form, state, reg, jacobi)
-    De_inv = arrays["De_inv"]
-    ne, ndl = De_inv.shape[0], De_inv.shape[1]
-    n0 = int(form.offsets[-2])
-    n1 = form.ndof - n0
-
-    def Dinv(w):  # L2 dofs are element-contiguous: a pure reshape
-        return torch.einsum("eij,ej->ei", De_inv, w.reshape(ne, ndl)
-                            ).reshape(-1)
-
-    def pad_u(v):
-        return torch.cat([v, torch.zeros(n1, dtype=v.dtype, device=v.device)])
-
-    def pad_p(w):
-        return torch.cat([torch.zeros(n0, dtype=w.dtype, device=w.device), w])
+    split, pad_u, pad_p, join, Dinv = _schur_blocks(form, arrays["De_inv"])
+    dot, norm = getattr(form, "dot", None), getattr(form, "norm", None)
 
     def mv(v):
         return form.grad_mult(state, v)
 
     def S(v):
-        Jv = mv(pad_u(v))
-        Av, Ctv = Jv[:n0], Jv[n0:]
-        return Av + mv(pad_p(Dinv(Ctv)))[:n0]
+        Av, Ctv = split(mv(pad_u(v)))
+        return Av + split(mv(pad_p(Dinv(Ctv))))[0]
 
     M = None
     if jacobi and fp is not None:
@@ -418,11 +492,12 @@ def schur_solve(form, state, r, tol: float, maxiter: int, reg: float = 1e-6,
         M = lambda v: v / safe  # noqa: E731
 
     def solve_reg(rr):
-        r_u, r_p = rr[:n0], rr[n0:]
-        rhs = r_u + mv(pad_p(Dinv(r_p)))[:n0]
-        du, k = cg(S, rhs, M=M, tol=tol, maxiter=maxiter)
-        dp = Dinv(mv(pad_u(du))[n0:] - r_p)
-        return torch.cat([du, dp]), k
+        r_u, r_p = split(rr)
+        rhs = r_u + split(mv(pad_p(Dinv(r_p))))[0]
+        du, k = cg(S, rhs, M=M, tol=tol, maxiter=maxiter, dot=dot,
+                   norm=norm)
+        dp = Dinv(split(mv(pad_u(du)))[1] - r_p)
+        return join(du, dp), k
 
     dx, its = solve_reg(r)
     for _ in range(refine):
@@ -434,7 +509,8 @@ def schur_solve(form, state, r, tol: float, maxiter: int, reg: float = 1e-6,
 
 def _check_schur_form(form, latent_block: int = 1):
     """The refusals of the Schur direction: it needs a 2-block (primal,
-    latent-last) system, element-block access and no essential dofs on
+    latent-last) system, element-block access (a form with integrators,
+    or a distributed form with ``schur_arrays``) and no essential dofs on
     the latent block."""
     off = form.offsets
     if len(off) != 3 or latent_block != len(off) - 2:
@@ -443,12 +519,15 @@ def _check_schur_form(form, latent_block: int = 1):
             f"with the latent block last; got {len(off) - 1} blocks, "
             f"latent_block={latent_block}"
         )
-    if not hasattr(form, "integrators"):
+    if not (hasattr(form, "integrators") or hasattr(form, "schur_arrays")):
         raise ValueError(
             "lin_solver='schur' needs element-block access "
-            "(BlockNonlinearForm)"
+            "(BlockNonlinearForm, ShardedForm or HaloShardedForm)"
         )
-    if bool(form.ess_mask[int(off[1]):].any()):
+    # the canonical mask: a distributed form carries the serial form at
+    # .form, and a halo form's own mask is in its slot layout
+    base = getattr(form, "form", form)
+    if bool(base.ess_mask[int(off[1]):].any()):
         raise ValueError(
             "lin_solver='schur' requires no essential dofs on the latent "
             "block"
@@ -526,11 +605,14 @@ def _lumped_minres(form, state, r, arrays, tol: float):
     return minres(mv, r, M=Mblock, tol=tol, maxiter=200)
 
 
-def _sigma_direct_enabled(opts, fp, nl: int) -> bool:
+def _sigma_direct_enabled(form, opts, fp, nl: int) -> bool:
     """The dense dual-Schur factor serves the LDU direction when
-    ``opts.sigma_direct`` is "auto", a primal GMG is there and the latent
-    has at most ``SIGMA_DIRECT_MAX`` dofs."""
+    ``opts.sigma_direct`` is "auto", a primal GMG is there, the latent
+    has at most ``SIGMA_DIRECT_MAX`` dofs and the form is not
+    distributed (its dense build is a serial-form tool)."""
     if not getattr(opts, "sigma_direct", "auto"):
+        return False
+    if hasattr(form, "schur_arrays"):
         return False
     if fp is None or not hasattr(fp, "apply_primal"):
         return False
@@ -765,7 +847,7 @@ def _ldu_fgmres(form, opts, fp, state, r, arrays, alpha: float):
     a2 = alpha * alpha
 
     sd = sdata = None
-    if _sigma_direct_enabled(opts, fp, nl):
+    if _sigma_direct_enabled(form, opts, fp, nl):
         mode = "direct"
         sd = _sigma_direct_update(form, fp, state, alpha, n0, nl)
     else:
@@ -966,12 +1048,13 @@ def _make_precond(form, state, spec):
     if spec is None:
         return None
     if spec == "jacobi":
-        safe = jacobi_diagonal(form.grad_diag(state))
+        safe = jacobi_diagonal(form.grad_diag(state),
+                               getattr(form, "pmax", None))
         return lambda v: v / safe
     return spec(form, state)
 
 
-def jacobi_diagonal(d):
+def jacobi_diagonal(d, pmax=None):
     """The Jacobi scale |d|, with 1 where |d| is at or below the dtype's
     rounding of its largest entry (eps * max|d|).  |d| keeps the
     preconditioner SPD on indefinite systems, so it serves MINRES as well
@@ -979,9 +1062,13 @@ def jacobi_diagonal(d):
     a Fermi-Dirac mirror map saturates, the port's E*'' keeps values such
     as 1e-20 (the JAX package's rounds them to exactly 0 and so takes 1
     there), and dividing by them would scale those saddle rows by 1e20
-    and stall MINRES."""
+    and stall MINRES.  ``pmax`` takes the largest entry across the ranks
+    of a distributed form (``HaloShardedForm.pmax``)."""
     d = torch.abs(d)
-    floor = torch.finfo(d.dtype).eps * d.max()
+    dmax = d.max()
+    if pmax is not None:
+        dmax = pmax(dmax)
+    floor = torch.finfo(d.dtype).eps * dmax
     return torch.where(d <= floor, 1.0, d)
 
 
@@ -1029,11 +1116,14 @@ def _direction(form, x, b, fields, opts: NewtonOptions):
     else:
         M = _make_precond(form, state, opts.preconditioner)
     mv = lambda v: form.grad_mult(state, v)  # noqa: E731
+    ip = {"dot": getattr(form, "dot", None),
+          "norm": getattr(form, "norm", None)}
     if opts.lin_solver == "gmres":
-        return gmres(mv, r, M=M, tol=opts.lin_tol, maxiter=opts.lin_maxiter)
+        return gmres(mv, r, M=M, tol=opts.lin_tol, maxiter=opts.lin_maxiter,
+                     **ip)
     solve = cg if opts.lin_solver == "cg" else minres
     return solve(mv, r, M=M, tol=opts.lin_tol, maxiter=opts.lin_maxiter,
-                 stall_window=opts.lin_stall_window)
+                 stall_window=opts.lin_stall_window, **ip)
 
 
 def _apply_step(form, x, c, b, fields, norm, opts):
@@ -1045,12 +1135,18 @@ def _apply_step(form, x, c, b, fields, norm, opts):
         return _apply_step_impl(form, x, c, b, fields, norm, opts)
 
 
+def _norm(form):
+    """The 2-norm of the form's vectors: a distributed form's own, else
+    torch's."""
+    return getattr(form, "norm", torch.linalg.vector_norm)
+
+
 def _apply_step_impl(form, x, c, b, fields, norm, opts):
     d = opts.damping
     best_x, best_n = None, np.inf
     for _ in range(5):
         xn = x - d * c
-        nn = float(torch.linalg.vector_norm(_residual(form, xn, b, fields)))
+        nn = float(_norm(form)(_residual(form, xn, b, fields)))
         if nn <= norm * (1.0 + 1e-10):
             return xn
         if nn < best_n:
@@ -1069,7 +1165,10 @@ def newton(form, x0, b=None, fields=None, opts: NewtonOptions | None = None):
     ``schur_solve``, whose CG iterations ``lin_iters`` counts, refinement
     pass included; for any other latent ``lumped_schur_solve``, whose
     FGMRES or MINRES iterations it counts), or a callable ``(form, state,
-    r) -> c``."""
+    r) -> c``.  It runs unchanged on a ``parallel.ShardedForm`` (replicated
+    vectors: every rank solves alike) and a ``parallel.HaloShardedForm``
+    (owner-zero slot blocks, whose inner products and norms the form
+    supplies)."""
     opts = opts or NewtonOptions()
     if not (callable(opts.lin_solver)
             or opts.lin_solver in _KRYLOV + ("dense", "schur")):
@@ -1091,8 +1190,7 @@ def newton(form, x0, b=None, fields=None, opts: NewtonOptions | None = None):
     stalled = 0
     for it in range(opts.max_iter + 1):
         with profiling.phase("newton/residual"):
-            norm = float(torch.linalg.vector_norm(
-                _residual(form, x, b, fields)))
+            norm = float(_norm(form)(_residual(form, x, b, fields)))
         hist.append(norm)
         if norm0 is None:
             norm0 = norm

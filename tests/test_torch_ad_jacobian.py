@@ -48,6 +48,8 @@ from mfem_ad_tpu_torch.models import elasticity as pex3
 from mfem_ad_tpu_torch.models import poisson as pex1
 from mfem_ad_tpu_torch.ops import ad_jacobian as adj
 from mfem_ad_tpu_torch.ops import nvcc
+from mfem_ad_tpu_torch import parallel as ppar
+from mfem_ad_tpu_torch.parallel import dryrun as pdry
 from mfem_ad_tpu_torch.ops.energy_codegen import (
     UnsupportedEnergy,
     trace_energy,
@@ -523,7 +525,8 @@ def test_ad_wrapper_takes_no_trace_argument():
 def test_entry_points_default_to_the_card():
     for fn in (PIntegrator.__init__, NonlinearForm.__init__,
                BlockNonlinearForm.__init__, pex1.build, pex1.solve,
-               pex3.build, pex3.solve):
+               pex3.build, pex3.solve, ppar.Comm.__init__, ppar.world,
+               ppar.init, ppar.spawn, pdry.dryrun_multichip):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
