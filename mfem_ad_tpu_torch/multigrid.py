@@ -23,14 +23,25 @@ equispaced, so the exact Q1 -> Qp embedding is the same separable linear
 stencil with factor p; see ``_up1d``), then the geometric Q1 hierarchy
 takes over.  ``build_hp_hierarchy`` assembles that level list.
 
-The level data (states, diagonals, coarse matrix and inverse) lives on the
+The level data (states, diagonals, coarse inverse) lives on the
 ``GMG`` object; ``newton`` refreshes it once per direction through
-``newton_precond``.
+``newton_precond``, writing it into the same tensors.
+
+On a CUDA device a V-cycle from the finest level is about 1,400 small
+kernels with no host sync between them, and the host's launches, not the
+device, set its time.  So ``GMG.vcycle(0, b)`` replays a CUDA graph of the
+whole V-cycle there (one per kind: plain and shifted), captured once over
+the level tensors; on the CPU it runs the same body eagerly.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
+
+from .integrator import SymHess
+from .utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +124,38 @@ def _down1d_sq(r, axis: int, p: int = 2):
     return out
 
 
+def _write(buf, new, owned: bool):
+    """``new`` (a tensor, a ``SymHess`` or a list of them) copied into
+    ``buf`` where ``buf`` has its layout (shape, type, device), which keeps
+    the memory that a V-cycle's graph reads; else ``new`` itself, or a copy
+    of it where the caller keeps it (``owned`` False)."""
+    if isinstance(new, (list, tuple)):
+        if not (isinstance(buf, list) and len(buf) == len(new)):
+            buf = [None] * len(new)
+        return [_write(a, b, owned) for a, b in zip(buf, new)]
+    if isinstance(new, SymHess):
+        return SymHess(_write(getattr(buf, "planes", None), new.planes,
+                              owned), new.n)
+    if (isinstance(buf, torch.Tensor) and buf.shape == new.shape
+            and buf.dtype == new.dtype and buf.device == new.device):
+        return buf.copy_(new)
+    return new if owned else new.clone()
+
+
+@dataclass
+class _VGraph:
+    """One captured V-cycle: the graph, the static vector it reads its
+    right-hand side from and writes its result to, and the level tensors
+    it was captured over (held, so that their memory cannot be reused
+    while the graph lives) with the key that says whether a call may
+    replay it."""
+
+    graph: object
+    key: tuple
+    held: list
+    b: torch.Tensor
+
+
 def _grid_shape(space):
     # 'h1t' (triangle meshes cut from a structured quad grid) is accepted as
     # in the JAX package: the tensor-grid bilinear transfer is not the exact
@@ -139,6 +182,9 @@ class GMG:
             Newton iterate once per direction (``refresh``); the default
             freezes the coarse levels at ``x_levels``, exact for linear
             energies and weak for nonlinear ones.
+
+    ``captures``, ``replays`` and ``eager_calls`` count the V-cycle graphs
+    captured, their replays and the V-cycles from level 0 run eagerly.
     """
 
     def __init__(self, forms, fields=None, x_levels=None, nu: int = 2,
@@ -166,20 +212,34 @@ class GMG:
         if x_levels is None:
             x_levels = [torch.zeros(f.ndof, dtype=f.dtype, device=f.device)
                         for f in self.forms]
+        self.states = [None] * len(self.forms)
+        self.diags = [None] * len(self.forms)
+        self.coarse_inv = None
+        self._sdata = None
+        self._graphs = {}
+        self._stream = None
+        self.captures = self.replays = self.eager_calls = 0
         self._linearize(x_levels, fields)
 
     def _linearize(self, x_levels, fields):
         """States and diagonals of every level at ``x_levels``, and the
         coarsest level's dense matrix (identity rows at essential dofs)
-        and its inverse."""
-        self.states = [
-            f.grad_state(x, fields) for f, x in zip(self.forms, x_levels)
-        ]
-        self.diags = [
-            f.grad_diag(s) for f, s in zip(self.forms, self.states)
-        ]
-        self.coarse_A = self.forms[-1].assemble_dense(self.states[-1])
-        self.coarse_inv = torch.linalg.inv(self.coarse_A)
+        and its inverse; level by level, each written into the tensors of
+        the last linearization."""
+        for lvl, (f, x) in enumerate(zip(self.forms, x_levels)):
+            s = f.grad_state(x, fields)
+            d = f.grad_diag(s)
+            self.states[lvl] = _write(self.states[lvl], s, True)
+            self.diags[lvl] = _write(self.diags[lvl], d, True)
+        self.coarse_inv = _write(self.coarse_inv,
+                                 torch.linalg.inv(self.coarse_A), True)
+
+    @property
+    def coarse_A(self):
+        """The coarsest level's dense matrix (identity rows at essential
+        dofs), assembled from its state where it is read (once per
+        linearization and per ``shift_data``): not kept between."""
+        return self.forms[-1].assemble_dense(self.states[-1])
 
     # -- grid helpers ----------------------------------------------------
     def _to_grid(self, lvl, u):
@@ -233,12 +293,25 @@ class GMG:
 
         This makes the hierarchy alpha-aware: in the LVPP Schur solve the
         reaction diag(C D^-1 C^T) grows like alpha on the active set, and a
-        V-cycle built on A alone over-corrects those dofs by O(alpha)."""
-        shifts = [torch.where(self.forms[0].ess_mask, 0.0, dshift)]
+        V-cycle built on A alone over-corrects those dofs by O(alpha).
+
+        The tensors are the GMG's own: each call writes over those of the
+        call before (the shifted V-cycle's graph reads them in place)."""
+        old = self._sdata or {"shifts": [None] * len(self.forms),
+                              "coarse_inv": None}
+        shifts = list(old["shifts"])
+        shifts[0] = _write(shifts[0],
+                           torch.where(self.forms[0].ess_mask, 0.0, dshift),
+                           True)
         for lvl in range(len(self.forms) - 1):
-            shifts.append(self.restrict_diag(lvl, shifts[-1]))
+            shifts[lvl + 1] = _write(shifts[lvl + 1],
+                                     self.restrict_diag(lvl, shifts[lvl]),
+                                     True)
         Ac = self.coarse_A + torch.diag(shifts[-1])
-        return {"shifts": shifts, "coarse_inv": torch.linalg.inv(Ac)}
+        self._sdata = {"shifts": shifts,
+                       "coarse_inv": _write(old["coarse_inv"],
+                                            torch.linalg.inv(Ac), True)}
+        return self._sdata
 
     def refresh(self, x, fields=None):
         """Re-linearize EVERY level at the Newton iterate ``x``: states and
@@ -272,24 +345,93 @@ class GMG:
 
     def vcycle(self, lvl, b, sdata=None):
         """One V-cycle from level ``lvl`` down: on A, or on A +
-        diag(shift) with ``sdata`` from ``shift_data``."""
+        diag(shift) with ``sdata`` from ``shift_data``.
+
+        From level 0 on a CUDA device it replays the graph of its kind
+        (plain or shifted) and returns a new tensor; the graph is captured
+        at the first call, and again where a level tensor it reads was
+        replaced instead of written in place."""
+        if lvl or not b.is_cuda:
+            if lvl == 0:
+                self.eager_calls += 1
+            return self._vcycle(lvl, b, sdata)
+        return self._replay(b, sdata)
+
+    def _vcycle(self, lvl, b, sdata=None):
         if lvl == len(self.forms) - 1:
             cinv = self.coarse_inv if sdata is None else sdata["coarse_inv"]
             return cinv @ b
         x = self._smooth(lvl, torch.zeros_like(b), b, sdata)
         r = b - self._op(lvl, x, sdata)
         rc = self.restrict(lvl, r)
-        xc = self.vcycle(lvl + 1, rc, sdata)
+        xc = self._vcycle(lvl + 1, rc, sdata)
         x = x + self.prolong(lvl, xc)
         return self._smooth(lvl, x, b, sdata)
+
+    def _read_by_vcycle(self, sdata):
+        """The level tensors a V-cycle reads."""
+        held = [f.ess_mask for f in self.forms] + self.diags[:-1]
+        for state in self.states[:-1]:
+            held += [h.planes if isinstance(h, SymHess) else h
+                     for h in state]
+        if sdata is None:
+            return held + [self.coarse_inv]
+        return held + list(sdata["shifts"]) + [sdata["coarse_inv"]]
+
+    def _replay(self, b, sdata):
+        kind = "plain" if sdata is None else "shifted"
+        held = self._read_by_vcycle(sdata)
+        key = (b.shape, b.dtype, b.device,
+               tuple(t.data_ptr() for t in held))
+        g = self._graphs.get(kind)
+        if g is None or g.key != key:
+            self._graphs.pop(kind, None)  # its memory pool goes first
+            g = self._graphs[kind] = self._capture(b, sdata, key, held)
+        else:
+            g.b.copy_(b)
+        g.graph.replay()
+        self.replays += 1
+        # a new tensor: cg keeps p = z across the next call
+        return g.b.clone()
+
+    def _capture(self, b, sdata, key, held):
+        """A CUDA graph of one V-cycle from level 0 on a static copy of
+        ``b``, which its last node overwrites with the result (the V-cycle
+        has read ``b`` for the last time), after an eager V-cycle on the
+        capture stream (libraries set themselves up lazily, which a
+        capture does not allow).
+
+        cuBLAS keeps a workspace for each stream it runs on (32 MiB on
+        Hopper).  Its workspaces are dropped before the warm-up, before
+        the capture and after it: the capture stream's is then allocated
+        inside the graph's private pool, which keeps it for the replays,
+        and no second workspace stays allocated beside the main stream's."""
+        with profiling.phase("gmg/capture"):
+            static_b = b.clone()
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(b.device)
+            main = torch.cuda.current_stream(b.device)
+            self._stream.wait_stream(main)
+            torch._C._cuda_clearCublasWorkspaces()
+            with torch.cuda.stream(self._stream):
+                self._vcycle(0, static_b, sdata)
+            torch._C._cuda_clearCublasWorkspaces()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self._stream):
+                static_b.copy_(self._vcycle(0, static_b, sdata))
+            torch._C._cuda_clearCublasWorkspaces()
+            main.wait_stream(self._stream)
+        self.captures += 1
+        return _VGraph(graph, key, held, static_b)
 
     def __call__(self, r):
         return self.vcycle(0, r)
 
     def set_fine(self, state, diag):
-        """Linearize the finest level at the caller's Newton state."""
-        self.states[0] = state
-        self.diags[0] = diag
+        """Linearize the finest level at the caller's Newton state, copied
+        into the finest level's tensors."""
+        self.states[0] = _write(self.states[0], state, False)
+        self.diags[0] = _write(self.diags[0], diag, False)
 
     def as_preconditioner(self):
         """``NewtonOptions.preconditioner`` factory: the finest level takes

@@ -16,7 +16,10 @@ same numpy-seeded inputs; the port is held to ``mfem_ad_tpu.multigrid``:
   minimal surface with ``nonlinear=True``, iterates within 1e-8;
 - ``PGBlockGMG``'s application on an LVPP saddle state;
 - the refreshed coarse matrix (``assemble_dense``) equals the coarse
-  form's matvec on the unit vectors, the JAX package's construction.
+  form's matvec on the unit vectors, the JAX package's construction;
+- ``refresh``, ``set_fine`` and ``shift_data`` write the level data into
+  the tensors that a V-cycle's CUDA graph reads, and on the CPU the
+  V-cycle runs eagerly (the graphs themselves: ``test_torch_gmg_graph``).
 
 The JAX reference of each case runs once, in a module fixture.
 """
@@ -249,6 +252,62 @@ def test_refreshed_coarse_matrix_is_the_matvec_on_unit_vectors():
     A = gmg.coarse_A
     assert float((A - cols.T).abs().max()) <= 1e-13 * float(A.abs().max())
     assert float((gmg.coarse_inv @ A - eye).abs().max()) <= 1e-12
+
+
+def _level_ptrs(gmg, sdata=None):
+    return [t.data_ptr() for t in gmg._read_by_vcycle(sdata)]
+
+
+def test_level_data_is_written_in_place():
+    """A nonlinear refresh, the Newton state of ``set_fine`` and each
+    ``shift_data`` land in the same tensors, with the values a GMG built
+    afresh at that data has; the caller's state is copied, not kept."""
+    fields = {"eps": 1e-3}
+    forms = PMG.build_hierarchy(lambda n: _minsurf(PORT, n), 4, 2)
+    gmg = PMG.GMG(forms, fields=fields, nonlinear=True)
+    ptrs = _level_ptrs(gmg)
+    fes = forms[0].spaces[0]
+    x = t(fes.project_bdr(np.zeros(fes.ndof), _minsurf_bdry))
+    gmg.refresh(x, fields)
+    fresh = PMG.GMG(forms, fields=fields, x_levels=[x, gmg.inject(0, x)])
+    assert _level_ptrs(gmg) == ptrs
+    for lvl in range(2):
+        assert torch.equal(gmg.states[lvl][0].planes,
+                           fresh.states[lvl][0].planes)
+        assert torch.equal(gmg.diags[lvl], fresh.diags[lvl])
+    assert torch.equal(gmg.coarse_inv, fresh.coarse_inv)
+
+    state = forms[0].grad_state(0.5 * x, fields)
+    diag = forms[0].grad_diag(state)
+    gmg.set_fine(state, diag)
+    assert _level_ptrs(gmg) == ptrs
+    assert torch.equal(gmg.states[0][0].planes, state[0].planes)
+    assert gmg.states[0][0].planes.data_ptr() != state[0].planes.data_ptr()
+    assert torch.equal(gmg.diags[0], diag)
+
+    rng = np.random.default_rng(7)
+    d1, d2 = (t(30.0 * np.abs(rng.standard_normal(fes.ndof)))
+              for _ in range(2))
+    s1 = gmg.shift_data(d1)
+    sptrs = _level_ptrs(gmg, s1)
+    s2 = gmg.shift_data(d2)
+    assert _level_ptrs(gmg, s2) == sptrs
+    ref = fresh.shift_data(d2)
+    for a, b in zip(s2["shifts"], ref["shifts"]):
+        assert torch.equal(a, b)
+    assert torch.equal(s2["coarse_inv"], ref["coarse_inv"])
+
+
+def test_vcycle_runs_eagerly_on_the_cpu(vcycles):
+    """No graph is captured off the card; every V-cycle from level 0 is
+    counted as an eager one."""
+    _, _, gmg = vcycles["poisson_p1"]
+    calls = gmg.eager_calls
+    b = t(_rhs(gmg.forms[0], 3))
+    assert torch.equal(gmg.vcycle(0, b), gmg._vcycle(0, b))
+    gmg.vcycle(1, gmg.restrict(0, b))
+    assert (gmg.captures, gmg.replays) == (0, 0)
+    assert gmg.eager_calls == calls + 1 >= 2
 
 
 # ---------------------------------------------------------------------------
