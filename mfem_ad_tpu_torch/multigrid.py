@@ -529,10 +529,25 @@ class PGSchurGMG:
     Build the GMG on primal-space forms of the objective energy
     (``build_hp_hierarchy`` for order > 1) and pass ``as_preconditioner()``
     to NewtonOptions together with ``lin_solver='schur'``.
+
+    The lumped direction of an H1 latent (``solvers._ldu_fgmres``) keeps
+    its dense dual-Schur factor in ``sigma_cache`` across the PG loop;
+    ``reset_sigma`` drops it, so that the next direction builds it anew.
+    Host counters of that direction: ``ldu_applies`` (block-LDU
+    applications), ``ldu_a_cg_iters`` and ``ldu_sigma_cg_iters`` (the
+    iterations of their inner A-solve and Sigma CGs), ``sigma_builds``
+    (K built) and ``sigma_refreshes`` (Sigma^-1 refreshed).
     """
 
     def __init__(self, gmg: GMG):
         self.gmg = gmg
+        self.sigma_cache = None
+        self.ldu_applies = self.ldu_a_cg_iters = self.ldu_sigma_cg_iters = 0
+        self.sigma_builds = self.sigma_refreshes = 0
+
+    def reset_sigma(self):
+        """Drop the cached dual-Schur factor (K, A^-1, Sigma^-1)."""
+        self.sigma_cache = None
 
     def as_preconditioner(self):
         def make(form, state):

@@ -752,13 +752,16 @@ def _sigma_direct_update(form, fp, state, alpha: float, n0: int, nl: int):
     built, or the previous direction took more than 12 FGMRES
     iterations; the Sigma-CG around the factor keeps every direction
     right whatever its staleness.  Returns the cache dict (``Sinv``, and
-    ``Ainv`` in gemm mode).  The profiling phases "ldu/sigma_K" and
-    "ldu/sigma_refresh" count and time the builds and refreshes."""
-    cache = getattr(fp, "_sigma_cache", None)
+    ``Ainv`` in gemm mode), kept in ``fp.sigma_cache``.  The profiling
+    phases "ldu/sigma_K" and "ldu/sigma_refresh" count and time the builds
+    and refreshes, and ``fp.sigma_builds`` and ``fp.sigma_refreshes``
+    count them."""
+    cache = fp.sigma_cache
     if cache is None or cache.get("nl") != nl:
-        cache = fp._sigma_cache = {"nl": nl}
+        cache = fp.sigma_cache = {"nl": nl}
 
     def build_K():
+        fp.sigma_builds += 1
         with profiling.phase("ldu/sigma_K", sync=form.ess_mask):
             if cache["mode"] == "gemm":
                 return sigma_K_gemm(form, state, alpha, n0, nl, cache)
@@ -774,6 +777,7 @@ def _sigma_direct_update(form, fp, state, alpha: float, n0: int, nl: int):
     if not ("Sinv" not in cache or a_ratio > 4.0
             or cache.get("outer_prev", 0) > 12):
         return cache
+    fp.sigma_refreshes += 1
     with profiling.phase("ldu/sigma_refresh", sync=form.ess_mask):
         _sigma_refresh(form, fp, state, alpha, n0, nl, cache, build_K)
     return cache
@@ -807,6 +811,40 @@ def _sigma_refresh(form, fp, state, alpha, n0, nl, cache, build_K):
     cache["alpha"] = alpha
 
 
+@dataclass
+class LDUBlocks:
+    """The blocks of one direction's block-LDU preconditioner
+    (``_ldu_fgmres``): ``a_solve`` and ``sigma_solve`` map a right-hand
+    side to (solution, inner CG iterations) of A and of Sigma; ``ct`` maps
+    a primal vector zu to alpha C^T zu, ``c`` a latent vector zp to
+    alpha C zp; ``n0`` is the primal block's size."""
+
+    n0: int
+    a_solve: object
+    sigma_solve: object
+    ct: object
+    c: object
+
+
+def ldu_apply(fp, blocks: LDUBlocks, v):
+    """One application of the block-LDU preconditioner to v = (ru, rp):
+    zu' = A^-1 ru; zp = -Sigma^-1 (rp - alpha C^T zu');
+    zu = A^-1 (ru - alpha C zp).  Adds the application and its inner CG
+    iterations (the host ints ``cg`` returns) to the counters of ``fp``,
+    the direction's ``multigrid.PGSchurGMG``.  A module-level function, so
+    that a wrapper can time every application."""
+    n0 = blocks.n0
+    ru, rp = v[:n0], v[n0:]
+    zu1, k1 = blocks.a_solve(ru)
+    zp, ks = blocks.sigma_solve(rp - blocks.ct(zu1))
+    zp = -zp
+    zu, k2 = blocks.a_solve(ru - blocks.c(zp))
+    fp.ldu_applies += 1
+    fp.ldu_a_cg_iters += k1 + k2
+    fp.ldu_sigma_cg_iters += ks
+    return torch.cat([zu, zp])
+
+
 def _ldu_fgmres(form, opts, fp, state, r, arrays, alpha: float):
     """Flexible GMRES on the alpha-scaled saddle Jacobian with the inexact
     block-LDU preconditioner
@@ -815,7 +853,7 @@ def _ldu_fgmres(form, opts, fp, state, r, arrays, alpha: float):
             [[I, A^-1 C], [0, I]],      Sigma = D + C^T A^-1 C,
 
     applied as zu' = A^-1 ru; zp = -Sigma^-1 (rp - C^T zu');
-    zu = A^-1 (ru - C zp), with
+    zu = A^-1 (ru - C zp) (``ldu_apply``), with
       - A^-1: CG on the primal block preconditioned by V_A (rel 1e-5, at
         most 64 iterations), V_A the dense f32 A^-1 in direct mode (where
         it was built), else one V-cycle;
@@ -895,21 +933,22 @@ def _ldu_fgmres(form, opts, fp, state, r, arrays, alpha: float):
             z1 = fp.apply_primal(mvraw(pad_p(z0))[:n0], sdata)  # V on S~
             return (z0 - Dtinv(mvraw(pad_u(z1))[n0:])) / a2
 
-    def Asolve(rhs):
-        return cg(lambda v: mvraw(pad_u(v))[:n0], rhs, M=V_A, tol=LDU_A_TOL,
-                  maxiter=LDU_A_MAX, stall_window=None)[0]
-
     def Sig_mv(w):  # the scaled dual Schur complement alpha^2 (D + C^T V_A C)
         t2 = mvraw(pad_p(w))
         return a2 * (-t2[n0:] + mvraw(pad_u(V_A(t2[:n0])))[n0:])
 
+    blocks = LDUBlocks(
+        n0=n0,
+        a_solve=lambda rhs: cg(lambda v: mvraw(pad_u(v))[:n0], rhs, M=V_A,
+                               tol=LDU_A_TOL, maxiter=LDU_A_MAX,
+                               stall_window=None),
+        sigma_solve=lambda rhs: cg(Sig_mv, rhs, M=SigM, tol=LDU_S_TOL,
+                                   maxiter=s_max, stall_window=None),
+        ct=lambda zu: alpha * mvraw(pad_u(zu))[n0:],
+        c=lambda zp: alpha * mvraw(pad_p(zp))[:n0])
+
     def M_ldu(v):
-        ru, rp = v[:n0], v[n0:]
-        zu1 = Asolve(ru)
-        zp = -cg(Sig_mv, rp - alpha * mvraw(pad_u(zu1))[n0:], M=SigM,
-                 tol=LDU_S_TOL, maxiter=s_max, stall_window=None)[0]
-        zu = Asolve(ru - alpha * mvraw(pad_p(zp))[:n0])
-        return torch.cat([zu, zp])
+        return ldu_apply(fp, blocks, v)
 
     with profiling.phase(f"ldu/fgmres_{mode}", sync=r):
         dx, total = _fgmres(mvs, M_ldu, r, n0, alpha, tol, budget, m)
