@@ -151,6 +151,13 @@ main paths through their public entry points:
      J3 ``examples.par_template`` through its launcher (``--nproc 4``)
         and ``parallel.dryrun`` through its own at 8 ranks, as child
         processes.
+  K. the grid Jacobian apply (``ops.grid_hess_mult``: the packed-Hessian
+     J v of a structured 2D H1 form in one kernel of two passes) at the
+     newton cell's discretisation, phase C's 512x512 Q1 vdim 2
+     neo-Hookean form in f64 with its clamped edge: against the eager
+     ``hess_mult`` body with the same elimination, bitwise equal over two
+     calls; its device time (each pass) beside its bytes bound, the eager
+     body's and the plain version's device time.
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
@@ -223,6 +230,7 @@ from mfem_ad_tpu_torch.parallel.dryrun import newton_step
 from mfem_ad_tpu_torch.ops import ad_jacobian as adj
 from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
+from mfem_ad_tpu_torch.ops import grid_hess_mult as ghm
 from mfem_ad_tpu_torch.ops import nvcc
 from mfem_ad_tpu_torch.pg import PGStepSizeRule
 from mfem_ad_tpu_torch.quadrature import TETRAHEDRON, TRIANGLE, get_rule
@@ -2413,6 +2421,76 @@ def phase_j3():
 
 
 
+def grid_apply_bound(intg, dtype) -> tuple[float, str]:
+    """(least ms, what bounds it) for one grid Jacobian apply of ``intg``:
+    its FMAs (x = B^T u, H x, the element vector) over the card's peak
+    arithmetic rate, or the planes, the input, the output and the mask
+    each moved once over its memory rate, whichever is longer."""
+    vdim, nd, nq, sd = ghm.shape_of(intg)
+    n, ne, ndof = vdim * sd, bench.elements(intg), vdim * intg.nds[0]
+    elem = torch.empty((), dtype=dtype).element_size()
+    ops_ms = 2.0 * ne * nq * (2 * n * nd + n * n) / PEAK_FLOPS[dtype] * 1e3
+    nbytes = elem * (n * (n + 1) // 2 * ne * nq + 2 * ndof) + ndof
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (
+        bytes_ms, "bytes")
+
+
+def phase_k(dev) -> dict:
+    """The grid Jacobian apply at phase C's discretisation (f64): the
+    kernel against the eager body, its determinism, and its times."""
+    form, _, _ = neohookean_ex3(dev)
+    intg = form.integrators[0]
+    state = form.grad_state(seeded(form.ndof, AMP / HEADLINE_N, 21,
+                                   torch.float64, dev))
+    v = seeded(form.ndof, 1.0, 22, torch.float64, dev)
+    ess = form.ess_mask
+    refusal = ghm.route_refusal(intg, state[0])
+    if refusal is not None:
+        raise AssertionError(f"K: the route refuses the newton form: "
+                             f"{refusal}")
+
+    def kernel():
+        return form.grad_mult(state, v)
+
+    def eager():
+        u = torch.where(ess, 0.0, v)
+        return torch.where(ess, v, intg._hess_mult_eager(state[0], [u])[0])
+
+    B0, offs, nx, ny, p = ghm.grid_operands(intg)
+
+    def plain():
+        return ghm.grid_grad_mult_plain(v, ess, state[0].planes, B0, offs,
+                                        nx, ny, p, intg.vdim[0])
+
+    ghm.grid_grad_mult.launches = 0
+    y = kernel()
+    err = rel_max(y, eager())
+    again = torch.equal(y, kernel())
+    err_plain = rel_max(plain(), eager())
+    torch.cuda.synchronize()
+    launches = ghm.grid_grad_mult.launches
+    log(f"K kernel vs eager {err:.3e} max|Jv| (tol 1e-13), plain vs eager "
+        f"{err_plain:.3e}, two calls bitwise equal: {again}, launches "
+        f"{launches}, eager CUDA applies {intg.eager_cuda_applies}")
+    if err > 1e-13 or err_plain > 1e-13 or not again or launches != 2:
+        raise AssertionError("K: the grid Jacobian apply disagrees")
+    k_ms, e_ms, p_ms = call_ms(kernel), call_ms(eager), call_ms(plain)
+    rows = device_profile(kernel, reps=20)
+    for name, t in rows:
+        log(f"K kernel device {t:.4f} ms  {name[:90]}")
+    k_dev = sum(t for k, t in rows if "ghm::" in k) or k_ms
+    e_dev = device_ms(eager, None, e_ms)
+    p_dev = device_ms(plain, None, p_ms)
+    b_ms, b_by = grid_apply_bound(intg, torch.float64)
+    log(f"K grid_grad_mult 512x512 Q1 vdim 2 f64: kernel device "
+        f"{k_dev:.4f} ms (events {k_ms:.4f}), eager hess_mult device "
+        f"{e_dev:.4f} ms (events {e_ms:.4f}), plain device {p_dev:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by}), kernel at {b_ms / k_dev:.1%} of it")
+    return {"launches": launches, "err": err, "ms": k_dev, "plain_ms": p_dev,
+            "eager_ms": e_dev, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2619,6 +2697,11 @@ def main() -> int:
     log("J kernel launches in this process (full-W, AD, blocked): "
         f"{[k.launches for k in kernels]}")
 
+    t0 = time.perf_counter()
+    grid = phase_k(dev)
+    torch.cuda.empty_cache()
+    log(f"phase_k: {time.perf_counter() - t0:.1f} s")
+
     print(json.dumps({"kernels": [{
         "name": "fused_element_jacobian",
         "route": "cuda",
@@ -2662,6 +2745,19 @@ def main() -> int:
         "bound_ms": blk["bound_ms"],
         "bound_by": blk["bound_by"],
         "library_ms": blk["library_ms"],
+    }, {
+        "name": "grid_grad_mult",
+        "route": "cuda",
+        "source": "mfem_ad_tpu_torch/csrc/grid_hess_mult.cuh",
+        "replaces": "none: the JAX package's hess_mult "
+                    "(mfem_ad_tpu/integrator.py:1212) is plain jnp",
+        "launches": grid["launches"],
+        "max_rel_err": grid["err"],
+        "ms": grid["ms"],
+        "plain_ms": grid["plain_ms"],
+        "eager_ms": grid["eager_ms"],
+        "bound_ms": grid["bound_ms"],
+        "bound_by": grid["bound_by"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

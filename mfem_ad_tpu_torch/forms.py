@@ -34,6 +34,7 @@ from .coefficients import (
 from .fespace import FESpace
 from .geometry import geom_factors
 from .integrator import ADBlockIntegrator
+from .ops import grid_hess_mult as ghm
 from .quadrature import get_rule
 
 
@@ -110,7 +111,14 @@ class BlockNonlinearForm:
         ]
 
     def grad_mult(self, state, v):
-        """J v with eliminated rows/cols and identity at essential dofs."""
+        """J v with eliminated rows/cols and identity at essential dofs.
+        On a CUDA tensor a form of one integrator that
+        ``grid_hess_mult.route_refusal`` accepts applies it, elimination
+        included, in one hand-written kernel."""
+        if (v.is_cuda and len(self.integrators) == 1
+                and ghm.route_refusal(self.integrators[0], state[0]) is None):
+            return ghm.grid_grad_mult(self.integrators[0], state[0], v,
+                                      self.ess_mask)
         blocks = self.split(torch.where(self.ess_mask, 0.0, v))
         acc = torch.zeros(self.ndof, dtype=v.dtype, device=v.device)
         for intg, Hq in zip(self.integrators, state):

@@ -578,6 +578,7 @@ class ADBlockIntegrator(nn.Module):
         self._install(tables)
         # the share of the element axis: every element in serial
         self.band = Band(None, tables["edof"][0].shape[0])
+        self.eager_cuda_applies = 0
 
     # ------------------------------------------------------------------
     def _tabulate(self, device) -> dict:
@@ -926,7 +927,23 @@ class ADBlockIntegrator(nn.Module):
         return SymHess(planes * w[None], n)
 
     def hess_mult(self, Hq, vblocks):
-        """Matrix-free J v = scatter(B (Hq (B^T v)))."""
+        """Matrix-free J v = scatter(B (Hq (B^T v))).
+
+        On CUDA tensors a single structured 2D H1 space with a uniform
+        Jacobian and a packed state takes one hand-written kernel
+        (``ops.grid_hess_mult``); ``eager_cuda_applies`` counts the CUDA
+        applies that its ``route_refusal`` sent down this eager body."""
+        if vblocks[0].is_cuda:
+            from .ops import grid_hess_mult as ghm
+
+            if ghm.route_refusal(self, Hq) is None:
+                return [ghm.grid_grad_mult(self, Hq,
+                                           vblocks[0].contiguous())]
+            self.eager_cuda_applies += 1
+        return self._hess_mult_eager(Hq, vblocks)
+
+    def _hess_mult_eager(self, Hq, vblocks):
+        """``hess_mult``'s body in PyTorch operations, on any device."""
         xv = self.x_qp(vblocks)
         if isinstance(Hq, SymHess):
             n = Hq.n
