@@ -326,7 +326,7 @@ def phase_a(dev):
                 before = fj.fused_element_jacobian.launches
                 A = intg.element_jacobians([u], route="kernel")
                 A_plain = fj.fused_element_jacobian_plain(
-                    intg.f, *fj.kernel_inputs(intg, [u]))
+                    intg.f, *intg.kernel_inputs([u]))
                 torch.cuda.synchronize()
                 if fj.fused_element_jacobian.launches != before + 1:
                     raise RuntimeError("kernel launch was not counted")
@@ -421,7 +421,7 @@ def phase_c_breakdown(form, x):
 def phase_b_timing(intg, u, A_main):
     """Kernel vs plain version at the headline shape, and the routes."""
     ne = intg.tables["edof"][0].shape[0]
-    args = fj.kernel_inputs(intg, [u])
+    args = intg.kernel_inputs([u])
     A_k = fj.fused_element_jacobian(intg.f, *args)
     A_p = fj.fused_element_jacobian_plain(intg.f, *args)
     torch.cuda.synchronize()
@@ -591,14 +591,14 @@ def phase_d1(dev):
                                     dtype=torch.float64)
             for dtype in (torch.float64, torch.float32):
                 intg = i64 if dtype == torch.float64 else retyped(i64, dtype)
-                why = adj.ad_kernel_route_refusal(intg)
+                why = intg.route_refusal("kernel_ad")
                 if why is not None:
                     raise AssertionError(f"{name}: AD kernel refused: {why}")
                 u = seeded(fes.ndof, AMP / max(nx, ny), 3, dtype, dev)
                 before = adj.ad_element_jacobian.launches
                 A = intg.element_jacobians([u], route="kernel_ad")
                 A_plain = adj.ad_element_jacobian_plain(
-                    intg.f, *fj.kernel_inputs(intg, [u]))
+                    intg.f, *intg.kernel_inputs([u]))
                 torch.cuda.synchronize()
                 if adj.ad_element_jacobian.launches != before + 1:
                     raise RuntimeError("AD kernel launch was not counted")
@@ -624,7 +624,7 @@ def phase_d1(dev):
     fes = FESpace(M.make_cartesian_2d(3, 3), 1)
     intg = ADBlockIntegrator(DotEnergy(), [fes], [ADEval.GRAD], device=dev,
                              dtype=torch.float64)
-    why = adj.ad_kernel_route_refusal(intg)
+    why = intg.route_refusal("kernel_ad")
     if why is None or "torch.dot" not in why:
         raise AssertionError(f"torch.dot energy not refused: {why}")
     u = seeded(fes.ndof, 1.0, 4, torch.float64, dev)
@@ -757,7 +757,7 @@ def phase_d3_timing(configs, main):
     rows = {}
     for name, (intg, u, route) in configs.items():
         ne = intg.tables["edof"][0].shape[0]
-        args = fj.kernel_inputs(intg, [u])
+        args = intg.kernel_inputs([u])
         A_k = adj.ad_element_jacobian(intg.f, *args)
         A_p = adj.ad_element_jacobian_plain(intg.f, *args)
         torch.cuda.synchronize()
@@ -851,8 +851,8 @@ def phase_e1(dev):
             for dtype in (torch.float64, torch.float32):
                 intg, u = vector_integrator(energy, dim, order, dims, dtype,
                                             dev, 7)
-                why = fj.kernel_route_refusal(intg)
-                if why is not None or not fj.uses_blocked_kernel(intg):
+                why = intg.route_refusal("kernel")
+                if why is not None or not intg.uses_blocked_kernel():
                     raise AssertionError(f"E1 blocked kernel refused: {why}")
                 tag = (f"E1 {energy.__name__} {dim}D p{order} "
                        f"{'x'.join(map(str, dims))} {str(dtype)[6:]}")
@@ -864,7 +864,7 @@ def phase_e1(dev):
                 before = bj.blocked_element_jacobian.launches
                 A = intg.element_jacobians([u], route="kernel")
                 A_plain = bj.blocked_element_jacobian_plain(
-                    intg.f, *bj.blocked_inputs(intg, [u]), dim, dim)
+                    intg.f, *intg.blocked_inputs([u]), dim, dim)
                 torch.cuda.synchronize()
                 if bj.blocked_element_jacobian.launches != before + 1:
                     raise RuntimeError("blocked kernel launch not counted")
@@ -931,11 +931,11 @@ def phase_e1_full_w(dev):
                 (fj.fused_element_jacobian, fj.fused_element_jacobian_plain)
                 if route == "kernel" else
                 (adj.ad_element_jacobian, adj.ad_element_jacobian_plain))
-            if fj.uses_blocked_kernel(intg) and route == "kernel":
+            if intg.uses_blocked_kernel() and route == "kernel":
                 raise AssertionError(f"{label}: the blocked kernel serves")
             before = wrapper.launches
             A = intg.element_jacobians([u], route=route)
-            A_plain = plain(intg.f, *fj.kernel_inputs(intg, [u]))
+            A_plain = plain(intg.f, *intg.kernel_inputs([u]))
             torch.cuda.synchronize()
             if wrapper.launches != before + 1:
                 raise RuntimeError(f"{label}: launch not counted")
@@ -1020,7 +1020,7 @@ def phase_e3_timing(configs, main):
     for name, (intg, u) in configs.items():
         ne = intg.tables["edof"][0].shape[0]
         vdim, sd, nd, nq = intg.vdim[0], intg.sd[0], intg.nd[0], intg.nq
-        args = bj.blocked_inputs(intg, [u])
+        args = intg.blocked_inputs([u])
 
         def kernel():
             return bj.blocked_element_jacobian(intg.f, *args, vdim, sd)
@@ -1563,8 +1563,8 @@ def rel_max(a, b) -> float:
 
 def routes(tag: str, intg):
     log(f"{tag} auto_route {intg.auto_route()}; closed-entries kernel: "
-        f"{fj.kernel_route_refusal(intg) or 'applies'}; AD kernel: "
-        f"{adj.ad_kernel_route_refusal(intg) or 'applies'}; pullback "
+        f"{intg.route_refusal('kernel') or 'applies'}; AD kernel: "
+        f"{intg.route_refusal('kernel_ad') or 'applies'}; pullback "
         f"{intg.pullback}; exchange "
         f"{(intg._gridmeta[0] or ('generic',))[0]}")
     if intg.auto_route() != "two_stage":
@@ -2426,7 +2426,7 @@ def grid_apply_bound(intg, dtype) -> tuple[float, str]:
     its FMAs (x = B^T u, H x, the element vector) over the card's peak
     arithmetic rate, or the planes, the input, the output and the mask
     each moved once over its memory rate, whichever is longer."""
-    vdim, nd, nq, sd = ghm.shape_of(intg)
+    vdim, nd, nq, sd = intg.vdim[0], intg.nd[0], intg.nq, intg.sd[0]
     n, ne, ndof = vdim * sd, bench.elements(intg), vdim * intg.nds[0]
     elem = torch.empty((), dtype=dtype).element_size()
     ops_ms = 2.0 * ne * nq * (2 * n * nd + n * n) / PEAK_FLOPS[dtype] * 1e3
@@ -2445,7 +2445,7 @@ def phase_k(dev) -> dict:
                                    torch.float64, dev))
     v = seeded(form.ndof, 1.0, 22, torch.float64, dev)
     ess = form.ess_mask
-    refusal = ghm.route_refusal(intg, state[0])
+    refusal = intg.route_refusal("grid", state[0])
     if refusal is not None:
         raise AssertionError(f"K: the route refuses the newton form: "
                              f"{refusal}")
@@ -2457,11 +2457,10 @@ def phase_k(dev) -> dict:
         u = torch.where(ess, 0.0, v)
         return torch.where(ess, v, intg._hess_mult_eager(state[0], [u])[0])
 
-    B0, offs, nx, ny, p = ghm.grid_operands(intg)
+    ops = intg.grid_operands()
 
     def plain():
-        return ghm.grid_grad_mult_plain(v, ess, state[0].planes, B0, offs,
-                                        nx, ny, p, intg.vdim[0])
+        return ghm.grid_grad_mult_plain(v, ess, state[0].planes, *ops)
 
     ghm.grid_grad_mult.launches = 0
     y = kernel()
@@ -2472,7 +2471,7 @@ def phase_k(dev) -> dict:
     launches = ghm.grid_grad_mult.launches
     log(f"K kernel vs eager {err:.3e} max|Jv| (tol 1e-13), plain vs eager "
         f"{err_plain:.3e}, two calls bitwise equal: {again}, launches "
-        f"{launches}, eager CUDA applies {intg.eager_cuda_applies}")
+        f"{launches}")
     if err > 1e-13 or err_plain > 1e-13 or not again or launches != 2:
         raise AssertionError("K: the grid Jacobian apply disagrees")
     k_ms, e_ms, p_ms = call_ms(kernel), call_ms(eager), call_ms(plain)
@@ -2531,7 +2530,7 @@ def main() -> int:
     err, k_ms, p_ms = phase_b_timing(intg, u, A_main)
     b_ms, b_by = bound(intg.tables["edof"][0].shape[0], intg.nq,
                        intg.n_input, 8, 2, torch.float32)
-    args = fj.kernel_inputs(intg, [u])
+    args = intg.kernel_inputs([u])
     k_dev = device_ms(lambda: fj.fused_element_jacobian(intg.f, *args),
                       "blocked_kernel", k_ms)
     p_dev = device_ms(
@@ -2555,8 +2554,8 @@ def main() -> int:
     configs = d2_configs(dev)
     for name, (ci, _, route) in configs.items():
         log(f"D2 {name}: closed-entries kernel: "
-            f"{fj.kernel_route_refusal(ci) or 'applies'}; AD kernel: "
-            f"{adj.ad_kernel_route_refusal(ci) or 'applies'}; route {route}")
+            f"{ci.route_refusal('kernel') or 'applies'}; AD kernel: "
+            f"{ci.route_refusal('kernel_ad') or 'applies'}; route {route}")
     adj.ad_element_jacobian.launches = 0
     main_out = phase_d2_main(configs)
     torch.cuda.synchronize()
@@ -2587,8 +2586,8 @@ def main() -> int:
     e_configs = e2_configs(dev)
     for name, (ci, _) in e_configs.items():
         log(f"E2 {name}: closed-entries kernel: "
-            f"{fj.kernel_route_refusal(ci) or 'applies'}, blocked-W0: "
-            f"{fj.uses_blocked_kernel(ci)}")
+            f"{ci.route_refusal('kernel') or 'applies'}, blocked-W0: "
+            f"{ci.uses_blocked_kernel()}")
     bj.blocked_element_jacobian.launches = 0
     e_main = phase_e2_main(e_configs)
     torch.cuda.synchronize()

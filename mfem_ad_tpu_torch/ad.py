@@ -18,7 +18,7 @@ only so the TPU kernel compiler could lower the graph.
 from __future__ import annotations
 
 import torch
-from torch.func import grad, jacfwd
+from torch.func import grad, jacfwd, vmap
 
 from .coefficients import Coefficient, as_coefficient
 
@@ -36,6 +36,15 @@ __all__ = [
     "ALFunctional",
     "EmptyEnergy",
 ]
+
+
+def qpmap(fn, x, p: dict):
+    """Apply a per-point function over the [ne, nq] leading dims of ``x``
+    and of every parameter (element-shared [1, nq, k] values broadcast
+    without a copy)."""
+    ne = x.shape[0]
+    pe = {k: v.expand((ne,) + tuple(v.shape[1:])) for k, v in p.items()}
+    return vmap(vmap(fn))(x, pe)
 
 
 def admax(a, b):

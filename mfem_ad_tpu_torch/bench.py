@@ -47,8 +47,6 @@ from .adeval import ADEval
 from .fespace import FESpace
 from .integrator import ADBlockIntegrator
 from .quadrature import TETRAHEDRON, TRIANGLE
-from .ops.ad_jacobian import ad_kernel_route_refusal
-from .ops.fused_jacobian import uses_blocked_kernel
 
 CPU_BASELINE = 1.0e7  # element Jacobians / s (the JAX bench's bracket)
 # FLOP/s, H100 SXM outside the tensor cores (NVIDIA data sheet, 700 W)
@@ -141,7 +139,7 @@ def fmas_per_element(intg, route: str) -> int:
     nq, n = intg.nq, intg.n_input
     v, nd, sd = intg.vdim[0], intg.nd[0], intg.sd[0]
     nde = v * nd
-    blocked = (uses_blocked_kernel(intg) if route == "kernel"
+    blocked = (intg.uses_blocked_kernel() if route == "kernel"
                else route == "two_stage" and "0_0" in t["W0"])
     if blocked:
         return blocked_fmas(nq, v, sd, nd)
@@ -187,7 +185,7 @@ def sweep_row(order: int, dim: int, n: int, device="cuda",
     row = dict(order=order, dim=dim, mesh=mesh, elems=elements(intg),
                residual=residual_rate(intg, u), jacobian=jac, route=route,
                share=fma_share(intg, route, jac), ad=None, ad_share=None,
-               ad_refusal=ad_kernel_route_refusal(intg))
+               ad_refusal=intg.route_refusal("kernel_ad"))
     if row["ad_refusal"] is None:
         row["ad"] = jacobian_rate(intg, u, "kernel_ad")
         row["ad_share"] = fma_share(intg, "kernel_ad", row["ad"])

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 from torch.func import grad, jacfwd
 
+from .ad import qpmap
 from .adeval import ADEval
 from .coefficients import (
     GridFunctionCoefficient,
@@ -40,11 +41,7 @@ from .coefficients import (
 )
 from .fespace import FESpace
 from .geometry import geom_factors
-from .integrator import (
-    ADBlockIntegrator,
-    _space_gridmeta,
-    qpmap,
-)
+from .integrator import ADBlockIntegrator, _space_gridmeta
 from .pg import ADEntropy
 from .quadrature import IntegrationRule, get_rule
 

@@ -42,9 +42,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 from torch import nn
-from torch.func import grad, jacfwd, vmap
+from torch.func import grad, jacfwd
 
-from .ad import ADFunction, ADVectorFunction
+from .ad import ADFunction, ADVectorFunction, qpmap
 from .adeval import ADEval, build_B, shapedim
 from .coefficients import (
     GridFunctionCoefficient,
@@ -53,18 +53,14 @@ from .coefficients import (
 )
 from .fespace import FESpace
 from .geometry import GeomFactors, geom_factors
+from .ops import ad_jacobian as adj
+from .ops import blocked_jacobian as bj
+from .ops import fused_jacobian as fj
+from .ops import grid_hess_mult as ghm
+from .ops.energy_codegen import UnsupportedEnergy
 from .quadrature import default_ad_order, get_rule
 
 ROUTES = ("auto", "kernel", "kernel_ad", "two_stage")
-
-
-def qpmap(fn, x, p: dict):
-    """Apply a per-point function over the [ne, nq] leading dims of ``x``
-    and of every parameter (element-shared [1, nq, k] values broadcast
-    without a copy)."""
-    ne = x.shape[0]
-    pe = {k: v.expand((ne,) + tuple(v.shape[1:])) for k, v in p.items()}
-    return vmap(vmap(fn))(x, pe)
 
 
 # ---------------------------------------------------------------------------
@@ -578,7 +574,6 @@ class ADBlockIntegrator(nn.Module):
         self._install(tables)
         # the share of the element axis: every element in serial
         self.band = Band(None, tables["edof"][0].shape[0])
-        self.eager_cuda_applies = 0
 
     # ------------------------------------------------------------------
     def _tabulate(self, device) -> dict:
@@ -927,20 +922,28 @@ class ADBlockIntegrator(nn.Module):
         return SymHess(planes * w[None], n)
 
     def hess_mult(self, Hq, vblocks):
-        """Matrix-free J v = scatter(B (Hq (B^T v))).
-
-        On CUDA tensors a single structured 2D H1 space with a uniform
-        Jacobian and a packed state takes one hand-written kernel
-        (``ops.grid_hess_mult``); ``eager_cuda_applies`` counts the CUDA
-        applies that its ``route_refusal`` sent down this eager body."""
-        if vblocks[0].is_cuda:
-            from .ops import grid_hess_mult as ghm
-
-            if ghm.route_refusal(self, Hq) is None:
-                return [ghm.grid_grad_mult(self, Hq,
-                                           vblocks[0].contiguous())]
-            self.eager_cuda_applies += 1
+        """Matrix-free J v = scatter(B (Hq (B^T v))).  On CUDA tensors the
+        grid route (``route_refusal("grid", Hq)``) applies it in one
+        hand-written kernel (``ops.grid_hess_mult``)."""
+        if vblocks[0].is_cuda and self.route_refusal("grid", Hq) is None:
+            return [ghm.grid_grad_mult(vblocks[0].contiguous(), None,
+                                       Hq.planes, *self.grid_operands())]
         return self._hess_mult_eager(Hq, vblocks)
+
+    def grad_mult(self, Hq, v, ess):
+        """J v on the dof vector ``v`` (the blocks concatenated) with the
+        dofs of the bool mask ``ess`` eliminated: their rows and columns
+        zeroed, identity on their diagonal (``NonlinearForm.grad_mult`` of
+        a form of this one integrator).  On a CUDA tensor the grid route
+        applies it, elimination included, in one hand-written kernel."""
+        if v.is_cuda and self.route_refusal("grid", Hq) is None:
+            return ghm.grid_grad_mult(v, ess, Hq.planes,
+                                      *self.grid_operands())
+        blocks = torch.split(torch.where(ess, 0.0, v),
+                             [sp.ndof for sp in self.spaces])
+        eager = torch.cat(self._hess_mult_eager(Hq, blocks))
+        # summed into zeros as a form sums its integrators: -0.0 -> +0.0
+        return torch.where(ess, v, torch.zeros_like(v) + eager)
 
     def _hess_mult_eager(self, Hq, vblocks):
         """``hess_mult``'s body in PyTorch operations, on any device."""
@@ -988,17 +991,175 @@ class ADBlockIntegrator(nn.Module):
             out.append(self.scatter(s, D))
         return out
 
+    # -- the hand-written kernels' routes -------------------------------
+    def uses_blocked_kernel(self, s: int = 0) -> bool:
+        """True when the closed-entries route takes the blocked-W0 kernel
+        (``ops.blocked_jacobian``) for the (s, s) block rather than the
+        full-W kernel (``ops.fused_jacobian``): the energy has closed
+        entries, ``W0["s_s"]`` is installed and the input is pure
+        GRAD|VECTOR, n = vdim*sd.  The JAX package makes the same choice
+        (``fused_jacobian.py:403-416``) but checks n against vdim alone
+        where sd is missing."""
+        return (f"{s}_{s}" in self.tables["W0"]
+                and self.f.hessian_closed_entries is not None
+                and self.n_input == self.vdim[s] * self.sd[s])
+
+    def supports_fused(self, s: int = 0) -> bool:
+        """True when the tables admit a fused element-Jacobian kernel for
+        the (s, s) block: shared R plus a full W (or a blocked W0 where
+        ``uses_blocked_kernel``), one space, element-shared static
+        parameters and quadrature weights (the JAX package's
+        ``supports_fused``)."""
+        t = self.tables
+        if "R" not in t:
+            return False
+        has_w = f"{s}_{s}" in t["W"]
+        if not (has_w or self.uses_blocked_kernel(s)) or len(self.spaces) != 1:
+            return False
+        if not all(v.shape[0] == 1 for v in t["static"].values()):
+            return False
+        return t["w"].shape[0] == 1
+
+    def _tables_on_cuda(self) -> bool:
+        return self.tables["w"].device.type == "cuda"
+
+    def route_refusal(self, route: str, state=None) -> str | None:
+        """Why the hand-written kernel of ``route`` cannot serve this
+        integrator, or None where it can; every kernel route asks here.
+
+          "kernel"     the closed-entries element-Jacobian kernel the tables
+                       select: blocked-W0 where ``uses_blocked_kernel``,
+                       else full-W;
+          "kernel_ad"  the AD element-Jacobian kernel, for any energy that
+                       traces;
+          "grid"       the grid Jacobian apply at the Newton state
+                       ``state`` (``grad_mult`` and ``hess_mult``, on CUDA
+                       tensors).
+
+        The element-Jacobian kernels take element-shared tables and static
+        parameters only, as the JAX package's kernel does; an energy is
+        traced once per energy object and parameter sizes."""
+        if route == "grid":
+            meta = self._gridmeta[0]
+            if len(self.spaces) != 1:
+                return f"a mixed form of {len(self.spaces)} spaces"
+            if meta is None or meta[0] != "h1":
+                kind = ("generic (no dof grid)" if meta is None
+                        else repr(meta[0]))
+                return (f"the dof exchange is {kind}, not a structured H1 "
+                        "grid")
+            if len(meta[1]) != 2:
+                return f"a {len(meta[1])}D grid"
+            if self.band.K != 1:
+                return "one rank's band of a sharded form"
+            if "R" not in self._layout:
+                return ("B is element-varying (no uniform Jacobian, no "
+                        "table R)")
+            if not isinstance(state, SymHess):
+                return ("the state is a full Hessian (a vector integrand's "
+                        "dF/dx)")
+            if self.dtype not in (torch.float32, torch.float64):
+                return f"unsupported dtype {self.dtype}"
+            if self.nq > ghm.MAX_POINTS:
+                return (f"{self.nq} points per element (at most "
+                        f"{ghm.MAX_POINTS})")
+            return None
+        if route not in ("kernel", "kernel_ad"):
+            raise ValueError(f"no kernel route {route!r}")
+        ad = route == "kernel_ad"
+        t = self.tables
+        if self.vector_fn:
+            return "vector integrands (ADVectorFunction) have no " + (
+                "scalar energy to differentiate" if ad else
+                "closed Hessian entries: the state is the Jacobian of F")
+        if self.field_kinds:
+            return (f"runtime field parameters ({', '.join(self.field_kinds)})"
+                    " are not kernel inputs: field-backed integrators take "
+                    "two-stage")
+        varying = [k for k, v in t["static"].items() if v.shape[0] != 1]
+        varying += ["w"] if t["w"].shape[0] != 1 else []
+        varying += ["B"] if any(b.shape[0] != 1 for b in t["B"]) else []
+        if varying:
+            return (f"element-varying geometry ({', '.join(varying)}): "
+                    "unstructured integrators take two-stage")
+        if not self._tables_on_cuda():
+            return f"the {'AD ' if ad else ''}kernel runs on CUDA tables only"
+        if not ad and self.f.hessian_closed_entries is None:
+            return f"{type(self.f).__name__} has no closed Hessian entries"
+        if not self.supports_fused():
+            return "tables do not admit a fused kernel (supports_fused)"
+        if ad and "0_0" not in t["W"]:
+            return ("no full W factor: blocked-W0 configurations take the "
+                    "blocked-W0 kernel or two-stage")
+        blocked = not ad and self.uses_blocked_kernel()
+        n, vdim, sd = self.n_input, self.vdim[0], self.sd[0]
+        if blocked and (vdim, sd) not in bj.BLOCKED_SHAPES:
+            return (f"(vdim, sd) = ({vdim}, {sd}) is not among the compiled "
+                    f"shapes {bj.BLOCKED_SHAPES}")
+        if not blocked and n not in bj.FULL_WIDTHS:
+            return f"n = {n} is not among the compiled widths {bj.FULL_WIDTHS}"
+        if self.dtype not in (torch.float32, torch.float64):
+            return f"unsupported dtype {self.dtype}"
+        if not blocked:
+            try:
+                bj.launch_plan(1, n, vdim * self.nd[0], self.nq, self.dtype)
+            except ValueError as e:
+                return str(e)
+        psizes = bj.param_sizes(t["static"])
+        try:
+            if ad:
+                adj.energy_code(self.f, psizes)
+            else:
+                bj.entries_code(self.f, psizes)
+        except UnsupportedEnergy as e:
+            what = "energy does" if ad else "closed entries do"
+            return f"the {what} not trace: {e}"
+        return None
+
+    def _element_operands(self, ublocks):
+        """The tables, the (0, 0) block's element dofs [ne, nde] (byNODES
+        (v, d) flat) and the element-shared parameters [nq, k]."""
+        t = self.tables
+        ue = self.gather(0, ublocks[0])  # [ne, nd, vdim]
+        ue2 = ue.permute(0, 2, 1).reshape(ue.shape[0], -1).contiguous()
+        return t, ue2, {k: v[0].contiguous() for k, v in t["static"].items()}
+
+    def kernel_inputs(self, ublocks):
+        """The operands (ue, R, W, wq, params) of the full-W and the AD
+        kernel (``ops.fused_jacobian``, ``ops.ad_jacobian``) for the (0, 0)
+        block of a single-space integrator with a full W."""
+        t, ue, params = self._element_operands(ublocks)
+        return (ue, t["R"][0].contiguous(), t["W"]["0_0"].contiguous(),
+                t["w"][0].contiguous(), params)
+
+    def blocked_inputs(self, ublocks):
+        """The operands (ue, B0, W0, wq, params) of the blocked-W0 kernel
+        (``ops.blocked_jacobian``) for the (0, 0) block of a single-space
+        integrator with a blocked factor W0."""
+        t, ue, params = self._element_operands(ublocks)
+        return (ue, t["B"][0][0].contiguous(), t["W0"]["0_0"].contiguous(),
+                t["w"][0].contiguous(), params)
+
+    def grid_operands(self):
+        """(B0 [nq, nd, sd], node offsets [nd, 2] (x, y), nx, ny, p, vdim):
+        the operands of the grid apply (``ops.grid_hess_mult``) after the
+        state's planes, where the grid route serves; B0 is the one block
+        of the vdim-block-diagonal table R, derived once per table."""
+        vdim, nd, nq, sd = self.vdim[0], self.nd[0], self.nq, self.sd[0]
+        _, (nx, ny), _, offs, p = self._gridmeta[0]
+        R = self.tables["R"][0]  # [(q, c, k), (c, d)]
+        B0 = bj.derived(R, ("grid_B0", vdim, sd), (), lambda: R.reshape(
+            nq, vdim, sd, vdim, nd)[:, 0, :, 0, :].permute(0, 2, 1)
+            .contiguous())
+        return B0, offs, int(nx), int(ny), int(p), vdim
+
     def auto_route(self, fields=None) -> str:
         """The route ``element_jacobians(route="auto")`` takes."""
-        from .ops.ad_jacobian import ad_kernel_route_refusal
-        from .ops.fused_jacobian import kernel_route_refusal
-
         if fields:
             return "two_stage"
-        if kernel_route_refusal(self) is None:
-            return "kernel"
-        if ad_kernel_route_refusal(self) is None:
-            return "kernel_ad"
+        for route in ("kernel", "kernel_ad"):
+            if self.route_refusal(route) is None:
+                return route
         return "two_stage"
 
     def element_jacobians(self, ublocks, fields=None, route: str = "auto"):
@@ -1007,14 +1168,13 @@ class ADBlockIntegrator(nn.Module):
         ``route``:
           "kernel"     the closed-entries element-Jacobian kernel: the
                        blocked-W0 kernel (``ops.blocked_jacobian``) where
-                       W0 is installed and the input is pure GRAD|VECTOR,
-                       else the full-W kernel (``ops.fused_jacobian``,
-                       the same GEMM kernel with vdim = 1, sd = n);
-                       raises where it does not apply (see
-                       ``kernel_route_refusal``);
+                       ``uses_blocked_kernel``, else the full-W kernel
+                       (``ops.fused_jacobian``, the same GEMM kernel with
+                       vdim = 1, sd = n); raises where
+                       ``route_refusal("kernel")`` names a reason;
           "kernel_ad"  the AD element-Jacobian kernel for any energy that
-                       traces (``ops.ad_jacobian``); raises where it does
-                       not apply (see ``ad_kernel_route_refusal``);
+                       traces (``ops.ad_jacobian``); raises where
+                       ``route_refusal("kernel_ad")`` names a reason;
           "two_stage"  ``hess_state`` then ``element_matrices``;
           "auto"       the first that applies of "kernel", "kernel_ad"
                        and "two_stage"; two-stage whenever ``fields`` are
@@ -1022,17 +1182,25 @@ class ADBlockIntegrator(nn.Module):
         Vector integrands and field-backed integrators take two-stage:
         both kernel routes refuse them.
         """
-        from .ops import ad_jacobian as adj
-        from .ops.fused_jacobian import element_jacobian_via_kernel
-
         if route not in ROUTES:
             raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
         if route == "auto":
             route = self.auto_route(fields)
+        elif route != "two_stage":
+            why = self.route_refusal(route)
+            if why is not None:
+                name = "AD kernel" if route == "kernel_ad" else "kernel"
+                raise ValueError(f"{name} route unavailable: {why}")
+        if route == "kernel" and self.uses_blocked_kernel():
+            return bj.blocked_element_jacobian(
+                self.f, *self.blocked_inputs(ublocks), self.vdim[0],
+                self.sd[0])
         if route == "kernel":
-            return element_jacobian_via_kernel(self, ublocks)
+            return fj.fused_element_jacobian(self.f,
+                                             *self.kernel_inputs(ublocks))
         if route == "kernel_ad":
-            return adj.element_jacobian_via_ad_kernel(self, ublocks)
+            return adj.ad_element_jacobian(self.f,
+                                           *self.kernel_inputs(ublocks))
         return self.element_matrices(self.hess_state(ublocks, fields), 0, 0)
 
     def element_matrices(self, Hq, s: int, t_: int):

@@ -221,12 +221,16 @@ class GMG:
         self.captures = self.replays = self.eager_calls = 0
         self._linearize(x_levels, fields)
 
-    def _linearize(self, x_levels, fields):
+    def _linearize(self, x_levels, fields, fine=None):
         """States and diagonals of every level at ``x_levels``, and the
         coarsest level's dense matrix (identity rows at essential dofs)
         and its inverse; level by level, each written into the tensors of
-        the last linearization."""
+        the last linearization.  ``fine``, a Newton state and its diagonal
+        from the caller, is copied in as level 0's instead."""
         for lvl, (f, x) in enumerate(zip(self.forms, x_levels)):
+            if lvl == 0 and fine is not None:
+                self.set_fine(*fine)
+                continue
             s = f.grad_state(x, fields)
             d = f.grad_diag(s)
             self.states[lvl] = _write(self.states[lvl], s, True)
@@ -319,12 +323,16 @@ class GMG:
         matrix assembled densely (the same matrix as the coarse form's
         matvec applied to the unit vectors) and its inverse.  A linear
         hierarchy (``nonlinear=False``) is left as it is."""
+        self._relinearize(x, fields)
+
+    def _relinearize(self, x, fields, fine=None):
+        """``refresh``, with level 0 taken from ``fine`` where given."""
         if not self.nonlinear:
             return
         xs = [x]
         for lvl in range(len(self.forms) - 1):
             xs.append(self.inject(lvl, xs[-1]))
-        self._linearize(xs, fields or {})
+        self._linearize(xs, fields or {}, fine)
 
     # -- V-cycle ---------------------------------------------------------
     def _op(self, lvl, x, sdata=None):
@@ -448,12 +456,16 @@ class GMG:
         return make
 
     def newton_precond(self, form, x, state, fields):
-        """The preconditioner of one Newton direction at iterate ``x``: a
-        nonlinear hierarchy re-linearizes every level at ``x``, then the
-        finest level takes the form's Newton state and its diagonal."""
-        d0 = form.grad_diag(state)
-        self.refresh(x, fields)
-        self.set_fine(state, d0)
+        """The preconditioner of one Newton direction at iterate ``x``: the
+        finest level takes the form's Newton state and its diagonal, and a
+        nonlinear hierarchy re-linearizes the coarser levels at ``x``
+        injected and builds the coarse inverse (from that state where the
+        finest level is the only one)."""
+        fine = (state, form.grad_diag(state))
+        if self.nonlinear:
+            self._relinearize(x, fields, fine)
+        else:
+            self.set_fine(*fine)
         return self
 
 

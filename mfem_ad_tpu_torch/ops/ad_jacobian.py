@@ -31,25 +31,12 @@ import weakref
 import torch
 from torch.func import grad, jacfwd
 
-from ..integrator import qpmap
+from ..ad import qpmap
 from . import blocked_jacobian as bj
 from . import nvcc
 from .blocked_jacobian import param_sizes
-from .energy_codegen import (
-    EnergyCode,
-    UnsupportedEnergy,
-    cached_trace,
-    trace_energy,
-)
-from .fused_jacobian import (
-    check_full_w_operands,
-    field_refusal,
-    full_w_operands,
-    full_w_refusal,
-    geometry_refusal,
-    kernel_inputs,
-    supports_fused,
-)
+from .energy_codegen import EnergyCode, cached_trace, trace_energy
+from .fused_jacobian import check_full_w_operands, full_w_operands
 
 _TRACES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
@@ -153,46 +140,3 @@ def ad_element_jacobian(f, ue, R, W, wq, params):
 
 
 ad_element_jacobian.launches = 0
-
-
-def _tables_on_cuda(intg) -> bool:
-    return intg.tables["w"].device.type == "cuda"
-
-
-def ad_kernel_route_refusal(intg) -> str | None:
-    """Why the AD kernel cannot assemble this integrator's element
-    Jacobians, or None when it can.  The energy is traced once per energy
-    object (``energy_code``)."""
-    t = intg.tables
-    if intg.vector_fn:
-        return ("vector integrands (ADVectorFunction) have no scalar "
-                "energy to differentiate")
-    if intg.field_kinds:
-        return field_refusal(intg)
-    why = geometry_refusal(intg)
-    if why is not None:
-        return why
-    if not _tables_on_cuda(intg):
-        return "the AD kernel runs on CUDA tables only"
-    if not supports_fused(intg):
-        return "tables do not admit a fused kernel (supports_fused)"
-    if "0_0" not in t["W"]:
-        return ("no full W factor: blocked-W0 configurations take the "
-                "blocked-W0 kernel or two-stage")
-    why = full_w_refusal(intg)
-    if why is not None:
-        return why
-    try:
-        energy_code(intg.f, param_sizes(t["static"]))
-    except UnsupportedEnergy as e:
-        return f"the energy does not trace: {e}"
-    return None
-
-
-def element_jacobian_via_ad_kernel(intg, ublocks):
-    """``intg.element_matrices(intg.hess_state(ublocks), 0, 0)`` through
-    the AD kernel; raises where the kernel does not apply."""
-    why = ad_kernel_route_refusal(intg)
-    if why is not None:
-        raise ValueError(f"AD kernel route unavailable: {why}")
-    return ad_element_jacobian(intg.f, *kernel_inputs(intg, ublocks))

@@ -48,12 +48,7 @@ import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
 from . import nvcc
-from .energy_codegen import (
-    EnergyCode,
-    UnsupportedEnergy,
-    cached_trace,
-    trace_entries,
-)
+from .energy_codegen import EnergyCode, cached_trace, trace_entries
 
 HEADERS = ("blocked_jacobian.cuh", "ad_jacobian.cuh")
 # (vdim, sd) the blocked factor W0 is compiled for: 2D and 3D vector GRAD
@@ -477,35 +472,3 @@ def blocked_element_jacobian(f, ue, B0, W0, wq, params, vdim, sd):
 
 
 blocked_element_jacobian.launches = 0
-
-
-def blocked_inputs(intg, ublocks):
-    """The operands (ue, B0, W0, wq, params) of
-    ``blocked_element_jacobian`` for the (0, 0) block of a single-space
-    integrator with a blocked factor W0."""
-    t = intg.tables
-    ue = intg.gather(0, ublocks[0])  # [ne, nd, vdim]
-    ue2 = ue.permute(0, 2, 1).reshape(ue.shape[0], -1).contiguous()
-    params = {k: v[0].contiguous() for k, v in t["static"].items()}
-    return (ue2, t["B"][0][0].contiguous(), t["W0"]["0_0"].contiguous(),
-            t["w"][0].contiguous(), params)
-
-
-def blocked_refusal(intg) -> str | None:
-    """Why the blocked-W0 kernel cannot serve an integrator that the
-    closed-entries route sends to it (CUDA tables that admit a fused
-    kernel, ``fused_jacobian.uses_blocked_kernel``), or None when it can."""
-    t = intg.tables
-    vdim, sd = intg.vdim[0], intg.sd[0]
-    if (vdim, sd) not in BLOCKED_SHAPES:
-        return (f"(vdim, sd) = ({vdim}, {sd}) is not among the compiled "
-                f"shapes {BLOCKED_SHAPES}")
-    if intg.dtype not in (torch.float32, torch.float64):
-        return f"unsupported dtype {intg.dtype}"
-    if t["B"][0].shape[0] != 1:
-        return "B is not element-shared"
-    try:
-        entries_code(intg.f, param_sizes(t["static"]))
-    except UnsupportedEnergy as e:
-        return f"the closed entries do not trace: {e}"
-    return None

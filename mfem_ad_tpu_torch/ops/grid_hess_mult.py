@@ -1,10 +1,9 @@
 """Matrix-free Jacobian apply of a structured 2D H1 form from its packed
 Hessian state, in one hand-written CUDA kernel of two passes.
 
-For a single-space integrator on a structured 2D H1 dof grid (``_gridmeta``
-kind "h1") with a uniform Jacobian (the single GEMM table R: B is
-element-shared) and a packed Newton state (``SymHess``), the Jacobian
-action of ``NonlinearForm.grad_mult``,
+For a single-space integrator on a structured 2D H1 dof grid with a
+uniform Jacobian (element-shared B) and a packed Newton state (the
+``SymHess`` planes), the Jacobian action of ``NonlinearForm.grad_mult``,
 
     y = where(ess, v, scatter(R^T (H (R gather(where(ess, 0, v)))))),
 
@@ -22,11 +21,11 @@ which XLA fuses on the TPU; eager PyTorch runs it as about 43 kernels and
 streams about 2 GB of temporaries per apply at 512^2 Q1 vdim 2, where the
 work needs the planes once (189 MB) and the vectors.
 
-``route_refusal(intg, state)`` says why an integrator and state cannot
-take the kernel (None where they can); ``forms.NonlinearForm.grad_mult``
-and ``ADBlockIntegrator.hess_mult`` route CUDA tensors through it.  The
-kernel template is instantiated per (vdim, nd, nq, sd), taken from the
-integrator's tables, in one small generated ``.cu`` that ``ops/nvcc.py``
+Both take tensors and the grid's integer shape.  The integrator decides
+where the kernel serves (``ADBlockIntegrator.route_refusal("grid",
+state)``) and builds its operands (``ADBlockIntegrator.grid_operands``).
+The kernel template is instantiated per (vdim, nd, nq, sd), read from the
+operands' shapes, in one small generated ``.cu`` that ``ops/nvcc.py``
 compiles at its first use.  Nothing is built or loaded when the module is
 imported.
 """
@@ -39,9 +38,8 @@ import functools
 import numpy as np
 import torch
 
-from ..integrator import SymHess
 from . import nvcc
-from .blocked_jacobian import check_cuda_operand, check_operand, derived
+from .blocked_jacobian import check_cuda_operand, check_operand
 
 HEADERS = ("grid_hess_mult.cuh",)
 ELEMS = 32  # elements per block of the element pass (ghm::kElems)
@@ -49,30 +47,6 @@ MAX_POINTS = 1024 // ELEMS  # one thread per (element, point) of a block
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
     ctypes.c_void_p, ctypes.c_void_p]
-
-
-def route_refusal(intg, state) -> str | None:
-    """Why ``grid_grad_mult`` cannot apply integrator ``intg``'s Jacobian
-    at Newton state ``state``, or None where it can."""
-    if len(intg.spaces) != 1:
-        return f"a mixed form of {len(intg.spaces)} spaces"
-    meta = intg._gridmeta[0]
-    if meta is None or meta[0] != "h1":
-        kind = "generic (no dof grid)" if meta is None else repr(meta[0])
-        return f"the dof exchange is {kind}, not a structured H1 grid"
-    if len(meta[1]) != 2:
-        return f"a {len(meta[1])}D grid"
-    if intg.band.K != 1:
-        return "one rank's band of a sharded form"
-    if "R" not in intg._layout:
-        return "B is element-varying (no uniform Jacobian, no table R)"
-    if not isinstance(state, SymHess):
-        return "the state is a full Hessian (a vector integrand's dF/dx)"
-    if intg.dtype not in (torch.float32, torch.float64):
-        return f"unsupported dtype {intg.dtype}"
-    if intg.nq > MAX_POINTS:
-        return f"{intg.nq} points per element (at most {MAX_POINTS})"
-    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,24 +74,6 @@ def load_library(vdim: int, nd: int, nq: int, sd: int):
     return nvcc.load_library(
         "grid_hess_mult", kernel_source(vdim, nd, nq, sd), HEADERS,
         {"ghm_launch_f32": _ARGTYPES, "ghm_launch_f64": _ARGTYPES})
-
-
-def shape_of(intg) -> tuple[int, int, int, int]:
-    """(vdim, nd, nq, sd): the instantiation an integrator takes."""
-    return intg.vdim[0], intg.nd[0], intg.nq, intg.sd[0]
-
-
-def grid_operands(intg):
-    """(B0 [nq, nd, sd], node offsets [nd, 2] int32 (x, y), nx, ny, p) of
-    an integrator that ``route_refusal`` accepts; B0 is the one block of
-    the vdim-block-diagonal table R, derived once per table."""
-    vdim, nd, nq, sd = shape_of(intg)
-    _, (nx, ny), _, offs, p = intg._gridmeta[0]
-    R = intg.tables["R"][0]  # [(q, c, k), (c, d)]
-    B0 = derived(R, ("grid_B0", vdim, sd), (), lambda: R.reshape(
-        nq, vdim, sd, vdim, nd)[:, 0, :, 0, :].permute(0, 2, 1).contiguous())
-    return (B0, np.ascontiguousarray(offs, dtype=np.int32), int(nx),
-            int(ny), int(p))
 
 
 def grid_grad_mult_plain(v, ess, planes, B0, offs, nx: int, ny: int,
@@ -168,26 +124,28 @@ def grid_grad_mult_plain(v, ess, planes, B0, offs, nx: int, ny: int,
     return out if ess is None else torch.where(ess, v, out)
 
 
-def grid_grad_mult(intg, state, v, ess=None):
-    """The Jacobian action of integrator ``intg`` at Newton state
-    ``state`` (a ``SymHess``) on the dof vector ``v``, with ``ess`` (a
-    bool mask over the dofs) eliminated as ``NonlinearForm.grad_mult``
-    does, or without elimination where ``ess`` is None
-    (``ADBlockIntegrator.hess_mult``).  ``route_refusal(intg, state)``
-    must be None.
+def grid_grad_mult(v, ess, planes, B0, offs, nx: int, ny: int, p: int,
+                   vdim: int):
+    """The Jacobian action on the dof vector ``v`` with ``ess`` (a bool
+    mask over the dofs) eliminated as ``NonlinearForm.grad_mult`` does, or
+    without elimination where ``ess`` is None
+    (``ADBlockIntegrator.hess_mult``); arguments as in
+    ``grid_grad_mult_plain``.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
     (counted in ``grid_grad_mult.launches``) or raise; there is no
     fallback on the device."""
-    vdim, nd, nq, sd = shape_of(intg)
-    B0, offs, nx, ny, p = grid_operands(intg)
     if v.device.type == "cpu":
-        return grid_grad_mult_plain(v, ess, state.planes, B0, offs, nx, ny,
-                                    p, vdim)
+        return grid_grad_mult_plain(v, ess, planes, B0, offs, nx, ny, p,
+                                    vdim)
     check_cuda_operand(v)
-    n, ne, ndof = vdim * sd, nx * ny, vdim * intg.nds[0]
+    nq, nd, sd = B0.shape
+    if nq > MAX_POINTS:
+        raise ValueError(f"{nq} points per element (at most {MAX_POINTS})")
+    n, ne = vdim * sd, nx * ny
+    ndof = vdim * (nx * p + 1) * (ny * p + 1)
     check_operand("v", v, (ndof,), v)
-    check_operand("planes", state.planes, (n * (n + 1) // 2, ne, nq), v)
+    check_operand("planes", planes, (n * (n + 1) // 2, ne, nq), v)
     check_operand("B0", B0, (nq, nd, sd), v)
     if ess is not None and (ess.dtype != torch.bool or ess.device != v.device
                             or tuple(ess.shape) != (ndof,)
@@ -195,6 +153,7 @@ def grid_grad_mult(intg, state, v, ess=None):
         raise ValueError(f"ess: {ess.dtype} {tuple(ess.shape)} on "
                          f"{ess.device}, expected a contiguous bool "
                          f"({ndof},) on {v.device}")
+    offs = np.ascontiguousarray(offs, dtype=np.int32)
     out = torch.empty_like(v)
     re = torch.empty((vdim * nd, ne), dtype=v.dtype, device=v.device)
     lib = load_library(vdim, nd, nq, sd)
@@ -203,7 +162,7 @@ def grid_grad_mult(intg, state, v, ess=None):
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
         err = fn(v.data_ptr(), None if ess is None else ess.data_ptr(),
-                 state.planes.data_ptr(), B0.data_ptr(), re.data_ptr(),
+                 planes.data_ptr(), B0.data_ptr(), re.data_ptr(),
                  out.data_ptr(), nx, ny, p, offs.ctypes.data, stream)
     if err != 0:
         raise RuntimeError(

@@ -54,7 +54,6 @@ from mfem_ad_tpu_torch.ops.energy_codegen import (
     UnsupportedEnergy,
     trace_energy,
 )
-from mfem_ad_tpu_torch.ops.fused_jacobian import kernel_inputs
 
 F64 = torch.float64
 PKG = os.path.dirname(adj.__file__).rsplit(os.sep, 1)[0]
@@ -343,7 +342,7 @@ def _tol(A):
 
 
 def _plain(pi, u):
-    args = kernel_inputs(pi, [vector_from_numpy(u, "cpu", F64)])
+    args = pi.kernel_inputs([vector_from_numpy(u, "cpu", F64)])
     return adj.ad_element_jacobian_plain(pi.f, *args).numpy(), args
 
 
@@ -433,7 +432,7 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
 def test_kernel_ad_route_raises_on_cpu_and_auto_takes_two_stage():
     _, pi, u = _pair("diffusion", 3, 1)
     ut = vector_from_numpy(u, "cpu", F64)
-    assert "CUDA" in adj.ad_kernel_route_refusal(pi)
+    assert "CUDA" in pi.route_refusal("kernel_ad")
     with pytest.raises(ValueError, match="CUDA"):
         pi.element_jacobians([ut], route="kernel_ad")
     assert torch.equal(pi.element_jacobians([ut]),
@@ -458,8 +457,8 @@ def test_ad_route_rules_with_tables_taken_for_cuda(monkeypatch, energy, n,
     (n=4, nde=18), 3D Q1 and Q2 scalar (3, 8) and (3, 27) and 3D p1
     vector (9, 24); W0-only configs are refused, naming their reason."""
     _, pi, _ = _pair(energy, n, order, dim)
-    monkeypatch.setattr(adj, "_tables_on_cuda", lambda intg: True)
-    why = adj.ad_kernel_route_refusal(pi)
+    monkeypatch.setattr(PIntegrator, "_tables_on_cuda", lambda self: True)
+    why = pi.route_refusal("kernel_ad")
     if refusal is None:
         assert why is None
     else:
@@ -470,10 +469,10 @@ def test_auto_takes_ad_kernel_where_it_applies_else_two_stage(monkeypatch):
     """auto after the closed-entries kernel's refusal: the AD kernel where
     it applies, else two-stage.  With the AD kernel's device check stubbed, CPU
     tensors reach its plain version, which must equal two-stage."""
-    monkeypatch.setattr(adj, "_tables_on_cuda", lambda intg: True)
+    monkeypatch.setattr(PIntegrator, "_tables_on_cuda", lambda self: True)
     taken = []
-    real = adj.element_jacobian_via_ad_kernel
-    monkeypatch.setattr(adj, "element_jacobian_via_ad_kernel",
+    real = adj.ad_element_jacobian
+    monkeypatch.setattr(adj, "ad_element_jacobian",
                         lambda *a: taken.append(1) or real(*a))
     _, pi, u = _pair("minimal_surface", 3, 2)
     ut = vector_from_numpy(u, "cpu", F64)
@@ -484,7 +483,7 @@ def test_auto_takes_ad_kernel_where_it_applies_else_two_stage(monkeypatch):
                                atol=_tol(A_two.numpy()))
     dot = pad.ADFunction(2, lambda x, p: torch.dot(x, x))
     pi_dot = PIntegrator(dot, [pi.spaces[0]], [PADEval.GRAD], device="cpu")
-    assert "torch.dot" in adj.ad_kernel_route_refusal(pi_dot)
+    assert "torch.dot" in pi_dot.route_refusal("kernel_ad")
     pi_dot.element_jacobians([ut])
     assert taken == [1]  # the refused energy went to two-stage
 
@@ -493,7 +492,7 @@ def test_energy_is_traced_once_per_energy_object(monkeypatch):
     """The AD route looks the energy's trace up: a second refusal check or
     element_jacobians call on one integrator does not trace it again, and
     an energy that does not trace is not traced again either."""
-    monkeypatch.setattr(adj, "_tables_on_cuda", lambda intg: True)
+    monkeypatch.setattr(PIntegrator, "_tables_on_cuda", lambda self: True)
     calls = []
     real = adj.trace_energy
     monkeypatch.setattr(adj, "trace_energy",
@@ -503,7 +502,7 @@ def test_energy_is_traced_once_per_energy_object(monkeypatch):
     intg = PIntegrator(f, pi.spaces, pi.modes, device="cpu",
                        tables=pi.tables)
     ut = vector_from_numpy(u, "cpu", F64)
-    assert adj.ad_kernel_route_refusal(intg) is None
+    assert intg.route_refusal("kernel_ad") is None
     A = intg.element_jacobians([ut])
     assert torch.equal(A, intg.element_jacobians([ut], route="kernel_ad"))
     assert calls == [f]
@@ -513,7 +512,7 @@ def test_energy_is_traced_once_per_energy_object(monkeypatch):
     pi_dot = PIntegrator(dot, pi.spaces, pi.modes, device="cpu",
                          tables=pi.tables)
     for _ in range(2):
-        assert "torch.dot" in adj.ad_kernel_route_refusal(pi_dot)
+        assert "torch.dot" in pi_dot.route_refusal("kernel_ad")
     assert calls == [f, dot]
 
 

@@ -44,7 +44,6 @@ from mfem_ad_tpu_torch.convert import tables_from_numpy, vector_from_numpy
 from mfem_ad_tpu_torch.fespace import FESpace as PFESpace
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator as PIntegrator
 from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
-from mfem_ad_tpu_torch.ops import fused_jacobian as fj
 from mfem_ad_tpu_torch.ops import nvcc
 from mfem_ad_tpu_torch.ops.energy_codegen import (
     UnsupportedEnergy,
@@ -106,7 +105,7 @@ def _tol(A):
 
 
 def _plain(pi, u):
-    args = bj.blocked_inputs(pi, [vector_from_numpy(u, "cpu", F64)])
+    args = pi.blocked_inputs([vector_from_numpy(u, "cpu", F64)])
     return bj.blocked_element_jacobian_plain(
         pi.f, *args, pi.vdim[0], pi.sd[0]).numpy()
 
@@ -122,7 +121,7 @@ def test_plain_matches_jax_blocked_kernel_interpret_and_two_stage(
         energy, dim, order, n):
     ji, pi, u = _pair(energy, dim, order, n)
     assert _min_det_f(pi, u) > 0.5
-    assert fj.uses_blocked_kernel(pi)
+    assert pi.uses_blocked_kernel()
     uj = [jnp.asarray(u)]
     A_pallas = np.asarray(element_jacobian_via_pallas(
         ji, uj, interpret=True, block=16))
@@ -389,9 +388,9 @@ def test_route_rules_with_tables_taken_for_cuda(monkeypatch, energy, dim,
     headline (no W0) keeps the full-W kernel, and an energy without closed
     entries is refused by name."""
     _, pi, _ = _pair(energy, dim, order, n)
-    monkeypatch.setattr(fj, "_tables_on_cuda", lambda intg: True)
-    assert fj.uses_blocked_kernel(pi) == blocked
-    why = fj.kernel_route_refusal(pi)
+    monkeypatch.setattr(PIntegrator, "_tables_on_cuda", lambda self: True)
+    assert pi.uses_blocked_kernel() == blocked
+    why = pi.route_refusal("kernel")
     if refusal is None:
         assert why is None
     else:
@@ -403,7 +402,7 @@ def test_kernel_route_takes_blocked_kernel_with_tables_taken_for_cuda(
     """route="kernel" and auto both reach blocked_element_jacobian at a W0
     config; with the device check stubbed, CPU tensors get its plain
     version, which must equal two-stage."""
-    monkeypatch.setattr(fj, "_tables_on_cuda", lambda intg: True)
+    monkeypatch.setattr(PIntegrator, "_tables_on_cuda", lambda self: True)
     taken = []
     real = bj.blocked_element_jacobian
     monkeypatch.setattr(bj, "blocked_element_jacobian",
@@ -420,7 +419,7 @@ def test_kernel_route_takes_blocked_kernel_with_tables_taken_for_cuda(
 def test_kernel_route_raises_on_cpu_and_auto_takes_two_stage():
     _, pi, u = _pair("elasticity", 3, 2, 2)
     ut = vector_from_numpy(u, "cpu", F64)
-    assert "CUDA" in fj.kernel_route_refusal(pi)
+    assert "CUDA" in pi.route_refusal("kernel")
     with pytest.raises(ValueError, match="CUDA"):
         pi.element_jacobians([ut], route="kernel")
     assert torch.equal(pi.element_jacobians([ut]),
@@ -429,7 +428,7 @@ def test_kernel_route_raises_on_cpu_and_auto_takes_two_stage():
 
 def test_wrapper_takes_plain_version_for_cpu_tensors_and_rejects_others():
     _, pi, u = _pair("neohookean", 3, 1, 2)
-    args = bj.blocked_inputs(pi, [vector_from_numpy(u, "cpu", F64)])
+    args = pi.blocked_inputs([vector_from_numpy(u, "cpu", F64)])
     before = bj.blocked_element_jacobian.launches
     A = bj.blocked_element_jacobian(pi.f, *args, 3, 3)
     assert torch.equal(A, bj.blocked_element_jacobian_plain(pi.f, *args,
@@ -455,10 +454,10 @@ def test_blocked_kernel_refuses_entries_that_do_not_trace(monkeypatch):
     _, pi, u = _pair("neohookean", 2, 2, 2)
     dot = PIntegrator(DotEntries(2, 1.3, 0.7), pi.spaces, pi.modes,
                       device="cpu", tables=pi.tables)
-    monkeypatch.setattr(fj, "_tables_on_cuda", lambda intg: True)
-    assert fj.uses_blocked_kernel(dot)
-    assert "do not trace" in fj.kernel_route_refusal(dot)
-    assert "torch.dot" in bj.blocked_refusal(dot)
+    monkeypatch.setattr(PIntegrator, "_tables_on_cuda", lambda self: True)
+    assert dot.uses_blocked_kernel()
+    why = dot.route_refusal("kernel")
+    assert "do not trace" in why and "torch.dot" in why
     ut = vector_from_numpy(u, "cpu", F64)
     with pytest.raises(ValueError, match="do not trace"):
         dot.element_jacobians([ut], route="kernel")
@@ -481,7 +480,7 @@ def test_new_modules_import_without_nvcc_triton_or_jax():
         "i = ADBlockIntegrator(ad.NeoHookeanEnergy(3, 1.0, 1.0), [fes],\n"
         "    [ADEval.GRAD | ADEval.VECTOR], device='cpu')\n"
         "u = torch.zeros(fes.ndof, dtype=torch.float64)\n"
-        "A = bj.blocked_element_jacobian(i.f, *bj.blocked_inputs(i, [u]),"
+        "A = bj.blocked_element_jacobian(i.f, *i.blocked_inputs([u]),"
         " 3, 3)\n"
         "assert A.shape == (1, 81, 81)\n"
         "assert torch.allclose(A, i.element_jacobians([u]), atol=1e-12)\n"

@@ -62,7 +62,7 @@ def test_kernel_matches_plain_on_card(cuda, energy, dtype, nx, ny):
     intg, u = _integrator(energy, nx, ny, 1, dtype, cuda)
     before = fj.fused_element_jacobian.launches
     A = intg.element_jacobians([u], route="kernel")
-    args = fj.kernel_inputs(intg, [u])
+    args = intg.kernel_inputs([u])
     A_plain = fj.fused_element_jacobian_plain(intg.f, *args)
     torch.cuda.synchronize()
     assert fj.fused_element_jacobian.launches == before + 1
@@ -98,7 +98,7 @@ def test_full_w_kernel_takes_any_energy_whose_entries_trace(cuda, dtype):
     before = fj.fused_element_jacobian.launches
     A = intg.element_jacobians([u])
     A_plain = fj.fused_element_jacobian_plain(intg.f,
-                                              *fj.kernel_inputs(intg, [u]))
+                                              *intg.kernel_inputs([u]))
     torch.cuda.synchronize()
     assert fj.fused_element_jacobian.launches == before + 1
     assert A.shape == (61 * 37, 4, 4) and torch.isfinite(A).all()
@@ -108,7 +108,7 @@ def test_full_w_kernel_takes_any_energy_whose_entries_trace(cuda, dtype):
 
 def test_auto_route_takes_the_kernel_on_card(cuda):
     intg, u = _integrator("neohookean", 8, 8, 1, torch.float32, cuda)
-    assert fj.kernel_route_refusal(intg) is None
+    assert intg.route_refusal("kernel") is None
     before = fj.fused_element_jacobian.launches
     A = intg.element_jacobians([u])
     A_two = intg.element_jacobians([u], route="two_stage")
@@ -120,8 +120,8 @@ def test_auto_route_takes_the_kernel_on_card(cuda):
 
 def test_blocked_w0_configs_take_the_blocked_kernel(cuda):
     intg, u = _integrator("neohookean", 4, 4, 2, torch.float64, cuda)
-    assert fj.kernel_route_refusal(intg) is None
-    assert fj.uses_blocked_kernel(intg)
+    assert intg.route_refusal("kernel") is None
+    assert intg.uses_blocked_kernel()
     before = (fj.fused_element_jacobian.launches,
               bj.blocked_element_jacobian.launches)
     A = intg.element_jacobians([u])
@@ -134,7 +134,7 @@ def test_blocked_w0_configs_take_the_blocked_kernel(cuda):
 
 def test_wrapper_rejects_bad_operands_on_card(cuda):
     intg, u = _integrator("neohookean", 3, 3, 1, torch.float32, cuda)
-    ue, R, W, w, params = fj.kernel_inputs(intg, [u])
+    ue, R, W, w, params = intg.kernel_inputs([u])
     with pytest.raises(ValueError, match="shape"):
         fj.fused_element_jacobian(intg.f, ue[:, :6].contiguous(), R, W, w,
                                   params)
@@ -199,11 +199,11 @@ def _ad_integrator(case, nx, ny, dtype, device):
 @pytest.mark.parametrize("nx,ny", [(3, 3), (61, 37)])
 def test_ad_kernel_matches_plain_on_card(cuda, case, dtype, nx, ny):
     intg, u = _ad_integrator(case, nx, ny, dtype, cuda)
-    assert adj.ad_kernel_route_refusal(intg) is None
+    assert intg.route_refusal("kernel_ad") is None
     before = adj.ad_element_jacobian.launches
     A = intg.element_jacobians([u], route="kernel_ad")
     A_plain = adj.ad_element_jacobian_plain(
-        intg.f, *fj.kernel_inputs(intg, [u]))
+        intg.f, *intg.kernel_inputs([u]))
     torch.cuda.synchronize()
     assert adj.ad_element_jacobian.launches == before + 1
     nde = intg.vdim[0] * intg.nd[0]
@@ -223,7 +223,7 @@ def test_ad_kernel_matches_closed_entries_kernel(cuda):
 
 def test_auto_route_takes_the_ad_kernel_for_poisson(cuda):
     intg, u = _ad_integrator("diffusion_p2", 8, 8, torch.float32, cuda)
-    assert fj.kernel_route_refusal(intg) is not None
+    assert intg.route_refusal("kernel") is not None
     before = adj.ad_element_jacobian.launches
     A = intg.element_jacobians([u])
     A_two = intg.element_jacobians([u], route="two_stage")
@@ -238,11 +238,11 @@ def test_ad_refusals_on_card(cuda):
     fes = FESpace(M.make_cartesian_3d(1, 1, 1), 2, vdim=3)
     w0 = ADBlockIntegrator(NeoHookeanEnergy(3, 1.0, 1.0), [fes],
                            [ADEval.GRAD | ADEval.VECTOR], device=cuda)
-    assert "W0" in adj.ad_kernel_route_refusal(w0)
+    assert "W0" in w0.route_refusal("kernel_ad")
     dot = ADFunction(2, lambda x, p: torch.dot(x, x))
     fes2 = FESpace(M.make_cartesian_2d(3, 3), 1)
     intg = ADBlockIntegrator(dot, [fes2], [ADEval.GRAD], device=cuda)
-    assert "torch.dot" in adj.ad_kernel_route_refusal(intg)
+    assert "torch.dot" in intg.route_refusal("kernel_ad")
     u = torch.zeros(fes2.ndof, dtype=torch.float64, device=cuda)
     before = adj.ad_element_jacobian.launches
     with pytest.raises(ValueError, match="torch.dot"):
@@ -253,7 +253,7 @@ def test_ad_refusals_on_card(cuda):
 
 def test_ad_wrapper_rejects_bad_operands_on_card(cuda):
     intg, u = _ad_integrator("neohookean_p1", 3, 3, torch.float32, cuda)
-    ue, R, W, w, params = fj.kernel_inputs(intg, [u])
+    ue, R, W, w, params = intg.kernel_inputs([u])
     f = intg.f
     before = adj.ad_element_jacobian.launches
     with pytest.raises(ValueError, match="shape"):
@@ -297,11 +297,11 @@ def _vector_integrator(energy, dim, order, dims, dtype, device):
 def test_blocked_kernel_matches_plain_on_card(cuda, energy, dtype, dim,
                                               order, dims):
     intg, u = _vector_integrator(energy, dim, order, dims, dtype, cuda)
-    assert fj.uses_blocked_kernel(intg)
+    assert intg.uses_blocked_kernel()
     before = bj.blocked_element_jacobian.launches
     A = intg.element_jacobians([u], route="kernel")
     A_plain = bj.blocked_element_jacobian_plain(
-        intg.f, *bj.blocked_inputs(intg, [u]), dim, dim)
+        intg.f, *intg.blocked_inputs([u]), dim, dim)
     torch.cuda.synchronize()
     assert bj.blocked_element_jacobian.launches == before + 1
     nde = dim * intg.nd[0]
@@ -314,7 +314,7 @@ def test_blocked_kernel_matches_plain_on_card(cuda, energy, dtype, dim,
 def test_blocked_wrapper_rejects_bad_operands_on_card(cuda):
     intg, u = _vector_integrator("neohookean", 3, 1, (2, 2, 2),
                                  torch.float32, cuda)
-    ue, B0, W0, w, params = bj.blocked_inputs(intg, [u])
+    ue, B0, W0, w, params = intg.blocked_inputs([u])
     f = intg.f
     before = bj.blocked_element_jacobian.launches
     with pytest.raises(ValueError, match="shape"):
@@ -341,7 +341,7 @@ def test_blocked_kernel_refuses_a_plan_it_cannot_run(cuda):
     runs."""
     intg, u = _vector_integrator("neohookean", 3, 1, (2, 2, 2),
                                  torch.float32, cuda)
-    ue, B0, W0, w, params = bj.blocked_inputs(intg, [u])
+    ue, B0, W0, w, params = intg.blocked_inputs([u])
     nd, nq, ne = intg.nd[0], intg.nq, ue.shape[0]
     plan = bj.launch_plan(3, 3, nd, nq, torch.float32)
     code = bj.entries_code(intg.f, bj.param_sizes(params))

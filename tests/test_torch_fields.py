@@ -41,8 +41,6 @@ from mfem_ad_tpu_torch.convert import tables_from_numpy
 from mfem_ad_tpu_torch.fespace import FESpace as PFESpace
 from mfem_ad_tpu_torch.forms import NonlinearForm as PNonlinearForm
 from mfem_ad_tpu_torch.integrator import ADBlockIntegrator as PIntegrator
-from mfem_ad_tpu_torch.ops import ad_jacobian as adj
-from mfem_ad_tpu_torch.ops import fused_jacobian as fj
 
 F64 = torch.float64
 N = 3  # 3x3 quads
@@ -162,8 +160,8 @@ def test_missing_field_raises_key_error_naming_it():
 
 def test_kernel_routes_refuse_field_backed_integrators():
     _, pi, fields, u = _problem()
-    for refusal in (fj.kernel_route_refusal, adj.ad_kernel_route_refusal):
-        why = refusal(pi)
+    for route in ("kernel", "kernel_ad"):
+        why = pi.route_refusal(route)
         assert why is not None and "runtime field parameters" in why
         assert "'s'" not in why and "s, k, m" in why
     ut = torch.as_tensor(u)

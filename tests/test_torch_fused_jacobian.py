@@ -69,7 +69,7 @@ def _pair(energy, n, order=1, dim=2):
 
 
 def _plain_inputs(pi, u):
-    return fj.kernel_inputs(pi, [vector_from_numpy(u, "cpu", F64)])
+    return pi.kernel_inputs([vector_from_numpy(u, "cpu", F64)])
 
 
 def _tol(A):
@@ -113,7 +113,7 @@ def test_wrapper_takes_plain_version_for_cpu_tensors():
 def test_forced_kernel_route_raises_on_cpu_and_auto_takes_two_stage():
     _, pi, u = _pair("neohookean", 3)
     ut = vector_from_numpy(u, "cpu", F64)
-    assert fj.kernel_route_refusal(pi) is not None
+    assert pi.route_refusal("kernel") is not None
     with pytest.raises(ValueError, match="CUDA"):
         pi.element_jacobians([ut], route="kernel")
     with pytest.raises(ValueError, match="route"):
@@ -128,7 +128,7 @@ def test_forced_kernel_route_raises_on_cpu_and_auto_takes_two_stage():
 ])
 def test_supports_fused_matches_jax(energy, n, order, dim):
     ji, pi, _ = _pair(energy, n, order, dim)
-    assert fj.supports_fused(pi) == jax_supports_fused(ji)
+    assert pi.supports_fused() == jax_supports_fused(ji)
 
 
 @pytest.mark.parametrize("energy,refusal", [
@@ -141,13 +141,12 @@ def test_full_w_route_rules_with_tables_taken_for_cuda(monkeypatch, energy,
     p1 (a full W, no W0) take the full-W instantiation of the GEMM
     kernel; an energy without closed entries is refused by name."""
     _, pi, _ = _pair(energy, 2)
-    monkeypatch.setattr(fj, "_tables_on_cuda", lambda intg: True)
+    monkeypatch.setattr(PIntegrator, "_tables_on_cuda", lambda self: True)
     assert "0_0" in pi.tables["W"] and "0_0" not in pi.tables["W0"]
-    assert not fj.uses_blocked_kernel(pi)
-    why = fj.kernel_route_refusal(pi)
+    assert not pi.uses_blocked_kernel()
+    why = pi.route_refusal("kernel")
     if refusal is None:
         assert why is None
-        assert fj.full_w_refusal(pi) is None
     else:
         assert refusal in why
 
@@ -174,9 +173,9 @@ def test_full_w_route_takes_any_energy_whose_entries_trace(monkeypatch):
     fes = PFESpace(PM.make_cartesian_2d(3, 3), 1)
     pi = PIntegrator(_QuarticDiffusion(), [fes], [PADEval.GRAD],
                      device="cpu", dtype=F64)
-    monkeypatch.setattr(fj, "_tables_on_cuda", lambda intg: True)
-    assert fj.kernel_route_refusal(pi) is None
-    assert not fj.uses_blocked_kernel(pi)
+    monkeypatch.setattr(PIntegrator, "_tables_on_cuda", lambda self: True)
+    assert pi.route_refusal("kernel") is None
+    assert not pi.uses_blocked_kernel()
     u = vector_from_numpy(
         0.3 * np.random.default_rng(2).standard_normal(fes.ndof), "cpu", F64)
     A = pi.element_jacobians([u], route="kernel").numpy()
@@ -190,7 +189,7 @@ def test_kernel_route_takes_full_w_kernel_with_tables_taken_for_cuda(
     """route="kernel" and auto both reach fused_element_jacobian at 2D p1;
     with the device check stubbed, CPU tensors get its plain version, which
     must equal two-stage."""
-    monkeypatch.setattr(fj, "_tables_on_cuda", lambda intg: True)
+    monkeypatch.setattr(PIntegrator, "_tables_on_cuda", lambda self: True)
     taken = []
     real = fj.fused_element_jacobian
     monkeypatch.setattr(fj, "fused_element_jacobian",

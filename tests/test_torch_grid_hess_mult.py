@@ -1,5 +1,6 @@
-"""The grid Jacobian apply (``ops.grid_hess_mult``): its route and its
-plain version on the CPU, and the CUDA kernel on the card.  This file
+"""The grid Jacobian apply (``ops.grid_hess_mult``): its route
+(``ADBlockIntegrator.route_refusal("grid", state)``) and its plain
+version on the CPU, and the CUDA kernel on the card.  This file
 imports neither jax nor the JAX package, so its card tests also run on a
 machine without them:
 
@@ -18,6 +19,10 @@ Tolerances, relative to max |J v|: 1e-14 for the plain version and 1e-13
 for the kernel in float64, 1e-5 in float32; both sum x, H x and the
 element vectors in another order than the eager body's GEMMs (and the
 kernel contracts multiply-adds into FMAs)."""
+
+import ast
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -131,20 +136,23 @@ def test_route(case):
         make, words = REFUSED[case]
         f = make()
         state = f.grad_state(_vec(f, rng, 0.01))
-        assert words in (ghm.route_refusal(f.integrators[0], state[0]) or "")
+        why = f.integrators[0].route_refusal("grid", state[0])
+        assert words in (why or "")
         return
     f = ACCEPTED[case]("cpu", F64)
     intg = f.integrators[0]
     state = f.grad_state(_vec(f, rng, 0.02))
     assert isinstance(state[0], SymHess)
-    assert ghm.route_refusal(intg, state[0]) is None
+    assert intg.route_refusal("grid", state[0]) is None
+    ops = intg.grid_operands()
     v = _vec(f, rng)
-    y = ghm.grid_grad_mult(intg, state[0], v, f.ess_mask)
+    launches = ghm.grid_grad_mult.launches
+    y = ghm.grid_grad_mult(v, f.ess_mask, state[0].planes, *ops)
     assert _rel(y, f.grad_mult(state, v)) <= 1e-14
     assert torch.equal(y[f.ess_mask], v[f.ess_mask])
-    assert _rel(ghm.grid_grad_mult(intg, state[0], v),
+    assert _rel(ghm.grid_grad_mult(v, None, state[0].planes, *ops),
                 intg.hess_mult(state[0], [v])[0]) <= 1e-14
-    assert intg.eager_cuda_applies == 0  # CPU applies are not counted
+    assert ghm.grid_grad_mult.launches == launches  # CPU: the plain one
 
 
 def test_module_builds_nothing_without_nvcc():
@@ -158,10 +166,29 @@ def test_module_builds_nothing_without_nvcc():
     f = ACCEPTED["q1_diffusion"]("cpu", F64)
     state = f.grad_state(torch.zeros(f.ndof, dtype=F64))
     launches = ghm.grid_grad_mult.launches
-    ghm.grid_grad_mult(f.integrators[0], state[0], torch.ones(f.ndof,
-                                                              dtype=F64))
+    ghm.grid_grad_mult(torch.ones(f.ndof, dtype=F64), None, state[0].planes,
+                       *f.integrators[0].grid_operands())
     assert ghm.grid_grad_mult.launches == launches
     assert src not in nvcc._LIBRARIES
+
+
+OPS_DIR = Path(ghm.__file__).parent
+
+
+@pytest.mark.parametrize("module", sorted(p.name for p in
+                                          OPS_DIR.glob("*.py")))
+def test_ops_import_neither_integrator_nor_forms(module):
+    """The kernels take tensors and integer shapes: no module of ``ops``
+    imports the integrator or the forms, at its top or in a function."""
+    names = []
+    for node in ast.walk(ast.parse((OPS_DIR / module).read_text())):
+        if isinstance(node, ast.ImportFrom):
+            base = "." * node.level + (node.module or "")
+            names += [base] + [f"{base}.{a.name}" for a in node.names]
+        elif isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+    assert not [n for n in names
+                if re.search(r"(^|\.)(integrator|forms)(\.|$)", n)]
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +223,7 @@ def test_kernel_is_the_eager_apply(cuda, case, dtype, n, tol):
     f = ACCEPTED[case](cuda, dtype, n)
     intg, ess = f.integrators[0], f.ess_mask
     state = f.grad_state(_vec(f, rng, 0.1 / n))
-    assert ghm.route_refusal(intg, state[0]) is None
+    assert intg.route_refusal("grid", state[0]) is None
     before = ghm.grid_grad_mult.launches
     for _ in range(3):
         v = _vec(f, rng)
@@ -208,7 +235,6 @@ def test_kernel_is_the_eager_apply(cuda, case, dtype, n, tol):
         assert _rel(intg.hess_mult(state[0], [v])[0],
                     intg._hess_mult_eager(state[0], [v])[0]) <= tol
     assert ghm.grid_grad_mult.launches - before == 9
-    assert intg.eager_cuda_applies == 0
 
 
 @pytest.mark.cuda
@@ -235,8 +261,12 @@ def test_graphed_vcycle_takes_the_kernel(cuda):
         before = ghm.grid_grad_mult.launches
         y = gmg.vcycle(0, b)
         assert ghm.grid_grad_mult.launches > before  # warm-up and capture
+        assert all(g.integrators[0].route_refusal("grid", s[0]) is None
+                   for g, s in zip(gmg.forms, gmg.states))
+        before = ghm.grid_grad_mult.launches
         assert torch.equal(y, gmg._vcycle(0, b))
+        # every operator of the levels above the coarsest: nu + 1 + nu
+        assert ghm.grid_grad_mult.launches - before == (
+            (2 * gmg.nu + 1) * (len(gmg.forms) - 1))
         assert torch.equal(gmg.vcycle(0, b), y)
         assert gmg.captures == 1 and gmg.replays == 2
-        assert all(g.integrators[0].eager_cuda_applies == 0
-                   for g in gmg.forms)

@@ -19,7 +19,9 @@ same numpy-seeded inputs; the port is held to ``mfem_ad_tpu.multigrid``:
   form's matvec on the unit vectors, the JAX package's construction;
 - ``refresh``, ``set_fine`` and ``shift_data`` write the level data into
   the tensors that a V-cycle's CUDA graph reads, and on the CPU the
-  V-cycle runs eagerly (the graphs themselves: ``test_torch_gmg_graph``).
+  V-cycle runs eagerly (the graphs themselves: ``test_torch_gmg_graph``);
+- a Newton direction linearizes each level once, to the bits of
+  ``refresh`` then ``set_fine``.
 
 The JAX reference of each case runs once, in a module fixture.
 """
@@ -296,6 +298,40 @@ def test_level_data_is_written_in_place():
     for a, b in zip(s2["shifts"], ref["shifts"]):
         assert torch.equal(a, b)
     assert torch.equal(s2["coarse_inv"], ref["coarse_inv"])
+
+
+@pytest.mark.parametrize("levels", [2, 1])
+def test_newton_direction_linearizes_each_level_once(monkeypatch, levels):
+    """In one Newton direction with a nonlinear GMG, level 0's Newton
+    state is computed once (by the direction) and its diagonal once (by
+    ``newton_precond``); every level's state and diagonal and the coarse
+    inverse equal, bitwise, those of ``refresh`` at the iterate followed
+    by ``set_fine`` with the form's state and diagonal."""
+    fields = {"eps": 1e-3}
+    forms = PMG.build_hierarchy(lambda n: _minsurf(PORT, n), 4, levels)
+    gmg, ref = (PMG.GMG(forms, fields=fields, nonlinear=True)
+                for _ in range(2))
+    fine = forms[0]
+    fes = fine.spaces[0]
+    x = t(fes.project_bdr(np.zeros(fes.ndof), _minsurf_bdry))
+    calls = []
+    for name in ("grad_state", "grad_diag"):
+        real = getattr(fine, name)
+        monkeypatch.setattr(fine, name, lambda *a, _r=real, _n=name, **k:
+                            calls.append(_n) or _r(*a, **k))
+    opts = PS.NewtonOptions(lin_solver="cg", lin_maxiter=3,
+                            preconditioner=gmg.as_preconditioner())
+    PS._direction(fine, x, torch.zeros_like(x), fields, opts)
+    assert sorted(calls) == ["grad_diag", "grad_state"]
+    monkeypatch.undo()
+    state = fine.grad_state(x, fields)
+    ref.refresh(x, fields)
+    ref.set_fine(state, fine.grad_diag(state))
+    for lvl in range(levels):
+        assert torch.equal(gmg.states[lvl][0].planes,
+                           ref.states[lvl][0].planes)
+        assert torch.equal(gmg.diags[lvl], ref.diags[lvl])
+    assert torch.equal(gmg.coarse_inv, ref.coarse_inv)
 
 
 def test_vcycle_runs_eagerly_on_the_cpu(vcycles):

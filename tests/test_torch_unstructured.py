@@ -54,8 +54,6 @@ from mfem_ad_tpu_torch.convert import tables_from_numpy
 from mfem_ad_tpu_torch.examples import ex3
 from mfem_ad_tpu_torch.fespace import FESpace as PFESpace
 from mfem_ad_tpu_torch.models import poisson as ppoisson
-from mfem_ad_tpu_torch.ops import ad_jacobian as adj
-from mfem_ad_tpu_torch.ops import fused_jacobian as fj
 from mfem_ad_tpu_torch.quadrature import SQUARE, TETRAHEDRON, TRIANGLE
 
 F64 = torch.float64
@@ -376,7 +374,7 @@ def test_port_integrator_from_jax_tables(kind):
 @pytest.mark.parametrize("kind", ["tri", "tet", "quad"])
 def test_kernel_routes_refuse_element_varying_geometry(kind):
     _, pi, u, _ = _pair(kind, 1 if kind == "tet" else 2)
-    for why in (fj.kernel_route_refusal(pi), adj.ad_kernel_route_refusal(pi)):
+    for why in (pi.route_refusal("kernel"), pi.route_refusal("kernel_ad")):
         assert why.startswith("element-varying geometry (_invj")
         assert "unstructured integrators take two-stage" in why
     assert pi.auto_route() == "two_stage"
