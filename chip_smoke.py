@@ -18,8 +18,10 @@ main paths through their public entry points:
      with the default route (the full-W instantiation), then kernel and
      plain timings;
   C. Newton–CG (Jacobi-preconditioned, matrix-free) on the same 512x512
-     mesh in f64 with ex3's boundary conditions and a scaled load, and the
-     ex3 model at its default size;
+     mesh in f64 with ex3's boundary conditions and a scaled load (each
+     direction's state from the grid-state kernel, one launch a direction
+     asserted; each CG matvec the grid apply), and the ex3 model at its
+     default size;
   D. the AD instantiation (energies code-generated and differentiated by
      nested dual numbers):
      D1 against its plain PyTorch version at 3x3 and 511x509, f64 and f32,
@@ -70,7 +72,8 @@ main paths through their public entry points:
         Jacobian against the matrix-free action at 3D p2;
      F4 the bench (``mfem_ad_tpu_torch.bench``): its sweep table (with
         the unstructured triangle and tet rows) and its headline line;
-  G. geometric multigrid and the LVPP obstacle path (no kernel):
+  G. geometric multigrid and the LVPP obstacle path (no element-Jacobian
+     kernel; the grid kernels' launches counted):
      G1 Newton on phase C's problem (512x512 neo-Hookean, f64) with CG
         preconditioned by a nonlinear GMG over 6 levels (512 -> 16 cells):
         CG iterations per step and wall time against phase C's Jacobi-CG,
@@ -114,7 +117,7 @@ main paths through their public entry points:
         iterations (a whole Woodbury direction runs hundreds, PERF.md):
         time per iteration and the residual they reach, beside H5's;
   I. dof-level PG, SiMPL topology optimization, LinearForm's chunked path,
-     the template driver and GLVis (no kernel):
+     the template driver and GLVis (no element-Jacobian kernel):
      I1 ex4 --dof-pg at the reference defaults (order 2, ref 3: H1 Q3 +
         the L2 Q3 dual, 160,481 dofs, Jacobi-MINRES, rule 0, alpha 1),
         with and without --spatial-bound, up to 6 PG iterations each:
@@ -131,9 +134,10 @@ main paths through their public entry points:
         host: the chunked path against the whole-mesh einsum, timed;
      I4 the template driver's ``main`` with -vis on the card against a
         loopback GLVis server in a thread: the stream it receives;
-  J. the multi-device layer (``parallel``: no kernel), 4 ranks spawned as
-     processes on this one card over gloo (NCCL refuses two ranks on one
-     GPU), f64, each held against the serial form on the same card:
+  J. the multi-device layer (``parallel``: no element-Jacobian kernel), 4
+     ranks spawned as processes on this one card over gloo (NCCL refuses
+     two ranks on one GPU), f64, each held against the serial form on the
+     same card:
      J1 phase C's 512x512 neo-Hookean (526,338 dofs) and ex4's obstacle
         at the reference defaults (83,681 dofs): energy, mult,
         grad_state + grad_mult, grad_diag (and the obstacle's Schur
@@ -158,6 +162,15 @@ main paths through their public entry points:
      ``hess_mult`` body with the same elimination, bitwise equal over two
      calls; its device time (each pass) beside its bytes bound, the eager
      body's and the plain version's device time.
+  L. the grid-state kernel (``ops.grid_hess_state``: the packed Newton
+     state of a structured 2D H1 form in one kernel) at phase C's
+     512x512 Q1 vdim 2 neo-Hookean form (by nested duals) and at pg2's
+     primal Q3 level (80x80 Q3 diffusion), f64: against the eager
+     ``hess_state`` body and the plain version, bitwise equal over two
+     calls; its device time beside its bound (the larger of the bytes it
+     writes and reads and the least f64 operations of the function: the
+     lines of the traced closed entries where the energy has them), the
+     plain version's and the eager body's device and CUDA-event times.
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
@@ -165,9 +178,9 @@ log also gives CUDA-event times of whole calls, host work included.
 
 Every phase checks its results and raises on failure (a rank that fails
 fails its spawn, and the script with it).  Each kernel's
-launch count is reset just before its main path (B and C for the full-W
-instantiation, D2 for the AD one, E2 for the blocked one) and read just
-after.  The last line of output is a JSON object naming the device; the
+launch count is reset just before its main path (B for the full-W
+instantiation, C for the grid state and the grid apply, D2 for the AD
+one, E2 for the blocked one) and read just after.  The last line of output is a JSON object naming the device; the
 line before it lists the kernels with their launch counts, timings and
 bounds.  There is no CPU path: without a CUDA device the script exits
 with an error.
@@ -231,7 +244,9 @@ from mfem_ad_tpu_torch.ops import ad_jacobian as adj
 from mfem_ad_tpu_torch.ops import blocked_jacobian as bj
 from mfem_ad_tpu_torch.ops import fused_jacobian as fj
 from mfem_ad_tpu_torch.ops import grid_hess_mult as ghm
+from mfem_ad_tpu_torch.ops import grid_hess_state as ghs
 from mfem_ad_tpu_torch.ops import nvcc
+from mfem_ad_tpu_torch.ops.energy_codegen import UnsupportedEnergy
 from mfem_ad_tpu_torch.pg import PGStepSizeRule
 from mfem_ad_tpu_torch.quadrature import TETRAHEDRON, TRIANGLE, get_rule
 from mfem_ad_tpu_torch.solvers import NewtonOptions, newton
@@ -1936,7 +1951,7 @@ def phase_h6(dev, h5):
 
 # ---------------------------------------------------------------------------
 # I: dof-level PG, SiMPL topology optimization, LinearForm's chunked path,
-#    the template driver and GLVis (no kernel)
+#    the template driver and GLVis (no element-Jacobian kernel)
 # ---------------------------------------------------------------------------
 
 
@@ -2151,7 +2166,8 @@ def phase_i4(dev):
 
 
 # ---------------------------------------------------------------------------
-# J: the multi-device layer, 4 ranks on the one card over gloo (no kernel)
+# J: the multi-device layer, 4 ranks on the one card over gloo (no
+#    element-Jacobian kernel)
 # ---------------------------------------------------------------------------
 
 
@@ -2490,6 +2506,112 @@ def phase_k(dev) -> dict:
             "eager_ms": e_dev, "bound_ms": b_ms, "bound_by": b_by}
 
 
+_LINE = re.compile(r"const (?:T|bool) \w+ = (.*);$")
+
+
+def trace_lines(code) -> int:
+    """The operation lines of a trace (``EnergyCode.source``)."""
+    return sum(1 for line in code.source.splitlines() if _LINE.search(line))
+
+
+def state_flops(f, psizes: dict) -> int:
+    """The f64 operations one point's packed Hessian needs, whatever
+    algorithm computes it: the lines of the traced closed entries where
+    the energy has them (each line one operation), else each line of the
+    traced energy once for its value, n times for the gradient and
+    n(n+1)/2 times for the Hessian's second parts.  The kernel's nested
+    duals do more (every part of every line in each of n(n+1)/2
+    evaluations); this counts what the function needs."""
+    try:
+        return trace_lines(bj.entries_code(f, psizes))
+    except UnsupportedEnergy:
+        code = adj.energy_code(f, psizes)
+        n = code.n_input
+        return trace_lines(code) * (1 + n + n * (n + 1) // 2)
+
+
+def grid_state_bound(intg, psizes: dict, dtype):
+    """(least ms, what bounds it, f64 operations, bytes) of one grid-state
+    call of ``intg``: per point x = B^T u (2 N nd), the Hessian's least
+    operations (``state_flops``) and the weight (K); the planes written,
+    the dof vector and the tables read once."""
+    vdim, nd, nq, sd = intg.vdim[0], intg.nd[0], intg.nq, intg.sd[0]
+    n, ne, ndof = vdim * sd, bench.elements(intg), vdim * intg.nds[0]
+    K = n * (n + 1) // 2
+    elem = torch.empty((), dtype=dtype).element_size()
+    flops = ne * nq * (2 * n * nd + state_flops(intg.f, psizes) + K)
+    nbytes = elem * (K * ne * nq + ndof + nq * nd * sd + nq * (
+        1 + sum(psizes.values())))
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by, flops, nbytes
+
+
+def phase_l(dev) -> dict:
+    """The grid-state kernel at phase C's discretisation and at pg2's Q3
+    level (f64): against the eager ``hess_state`` body and the plain
+    version, its determinism, and its times."""
+    nh, _, _ = neohookean_ex3(dev)
+    q3 = NonlinearForm(FESpace(M.make_cartesian_2d(80, 80), 3), device=dev,
+                       dtype=torch.float64)
+    q3.add_ad_integrator(DiffusionEnergy(2), ADEval.GRAD)
+    rows = {}
+    for name, form, amp in (("512x512 Q1 vdim 2 neo-Hookean", nh,
+                             AMP / HEADLINE_N),
+                            ("80x80 Q3 diffusion", q3, 1.0)):
+        intg = form.integrators[0]
+        u = seeded(form.ndof, amp, 23, torch.float64, dev)
+        refusal = intg.route_refusal("grid_state")
+        if refusal is not None:
+            raise AssertionError(f"L: the route refuses {name}: {refusal}")
+        ops = intg.grid_state_operands()
+
+        def kernel():
+            return ghs.grid_hess_state(intg.f, u, *ops)
+
+        def plain():
+            return ghs.grid_hess_state_plain(intg.f, u, *ops)
+
+        def eager():
+            return intg._hess_state_eager([u], sym=True).planes
+
+        ghs.grid_hess_state.launches = 0
+        P = kernel()
+        err = rel_max(P, eager())
+        again = torch.equal(P, kernel())
+        err_plain = rel_max(plain(), eager())
+        torch.cuda.synchronize()
+        launches = ghs.grid_hess_state.launches
+        log(f"L {name}: kernel vs eager {err:.3e} max|H| (tol 1e-13), "
+            f"plain vs eager {err_plain:.3e}, two calls bitwise equal: "
+            f"{again}, launches {launches}")
+        if err > 1e-13 or err_plain > 1e-13 or not again or launches != 2:
+            raise AssertionError(f"L: the grid-state kernel disagrees on "
+                                 f"{name}")
+        del P
+        k_ms, e_ms, p_ms = call_ms(kernel), call_ms(eager), call_ms(plain)
+        k_rows = device_profile(kernel, reps=20)
+        for kname, t in k_rows:
+            log(f"L kernel device {t:.4f} ms  {kname[:90]}")
+        k_dev = sum(t for k, t in k_rows if "ghs::" in k) or k_ms
+        e_dev = device_ms(eager, None, e_ms)
+        p_dev = device_ms(plain, None, p_ms)
+        b_ms, b_by, flops, nbytes = grid_state_bound(
+            intg, bj.param_sizes(ops[2]), torch.float64)
+        log(f"L grid_hess_state {name} f64: kernel device {k_dev:.4f} ms "
+            f"(events {k_ms:.4f}), eager hess_state device {e_dev:.4f} ms "
+            f"(events {e_ms:.4f}), plain device {p_dev:.4f} ms (events "
+            f"{p_ms:.4f}); bound {b_ms:.4f} ms ({b_by}: {flops:,} f64 "
+            f"operations, {nbytes:,} bytes), kernel at {b_ms / k_dev:.1%} "
+            "of it")
+        rows[name] = {"launches": launches, "err": err, "ms": k_dev,
+                      "events_ms": k_ms, "plain_ms": p_dev,
+                      "eager_ms": e_dev, "eager_events_ms": e_ms,
+                      "bound_ms": b_ms, "bound_by": b_by}
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2516,13 +2638,33 @@ def main() -> int:
     form, fes, b = neohookean_ex3(dev)
     fj.fused_element_jacobian.launches = 0
     A_main, asym = phase_b_main(intg, u)
-    res, wall = phase_c_main(form, fes, b)
     torch.cuda.synchronize()
     launches = fj.fused_element_jacobian.launches
     if launches < 1:
         raise AssertionError("the main path never launched the kernel")
     log(f"phase B ok: {tuple(A_main.shape)} finite, symmetric to "
         f"{asym:.3e} max|A|, kernel launches on the main path {launches}")
+    # the Newton–CG main path: each direction linearizes once (the
+    # grid-state kernel) and CG applies the Jacobian once before its loop
+    # and once per loop pass (the grid apply)
+    ghs.grid_hess_state.launches = 0
+    ghm.grid_grad_mult.launches = 0
+    res, wall = phase_c_main(form, fes, b)
+    torch.cuda.synchronize()
+    c_state = ghs.grid_hess_state.launches
+    c_apply = ghm.grid_grad_mult.launches
+    directions = len(res.lin_iters)
+    log(f"C kernel launches on the main path: grid_hess_state {c_state} "
+        f"({directions} directions), grid_grad_mult {c_apply} (CG "
+        f"iterations {sum(res.lin_iters)})")
+    if c_state != directions:
+        raise AssertionError(
+            f"the C main path launched the grid-state kernel {c_state} "
+            f"times in {directions} Newton directions")
+    if c_apply < sum(res.lin_iters) + directions:
+        raise AssertionError(
+            f"the C main path launched the grid apply {c_apply} times for "
+            f"{sum(res.lin_iters)} CG iterations")
     log("phase C ok")
 
     phase_c_breakdown(form, res.x)
@@ -2628,9 +2770,13 @@ def main() -> int:
         phase(dev)
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
 
-    # no kernel lies on phase G's path: its launch counts stay 0
+    # no element-Jacobian kernel lies on phase G's path: their launch
+    # counts stay 0; the grid kernels (apply, state) serve its structured
+    # 2D H1 forms on the card and count what they launch
     kernels = (fj.fused_element_jacobian, adj.ad_element_jacobian,
-               bj.blocked_element_jacobian)
+               bj.blocked_element_jacobian, ghm.grid_grad_mult,
+               ghs.grid_hess_state)
+    tally = "(full-W, AD, blocked, grid apply, grid state)"
     for k in kernels:
         k.launches = 0
     t0 = time.perf_counter()
@@ -2646,12 +2792,11 @@ def main() -> int:
         phase(dev, *args)
         torch.cuda.empty_cache()
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
-    log("G kernel launches (full-W, AD, blocked): "
-        f"{[k.launches for k in kernels]}")
+    log(f"G kernel launches {tally}: {[k.launches for k in kernels]}")
 
-    # no kernel lies on phase H's path either (element-varying geometry
-    # and two-space forms take two-stage; H3's structured reference is
-    # asked for two-stage)
+    # no element-Jacobian kernel lies on phase H's path either
+    # (element-varying geometry and two-space forms take two-stage; H3's
+    # structured reference is asked for two-stage)
     for k in kernels:
         k.launches = 0
     for phase in (phase_h1, phase_h2, phase_h3, phase_h4):
@@ -2666,8 +2811,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_h6(dev, h5)
     log(f"phase_h6: {time.perf_counter() - t0:.1f} s")
-    log("H kernel launches (full-W, AD, blocked): "
-        f"{[k.launches for k in kernels]}")
+    log(f"H kernel launches {tally}: {[k.launches for k in kernels]}")
 
     # nor on phase I's: the dof-PG form is a two-space form, SiMPL's state
     # solve is matrix-free, the load vector and GLVis are host work
@@ -2679,8 +2823,7 @@ def main() -> int:
         phase(*args)
         torch.cuda.empty_cache()
         log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
-    log("I kernel launches (full-W, AD, blocked): "
-        f"{[k.launches for k in kernels]}")
+    log(f"I kernel launches {tally}: {[k.launches for k in kernels]}")
 
     # nor on phase J's: its ranks are processes of their own and count
     # their own launches
@@ -2693,13 +2836,17 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_j3()
     log(f"phase_j3: {time.perf_counter() - t0:.1f} s")
-    log("J kernel launches in this process (full-W, AD, blocked): "
+    log(f"J kernel launches in this process {tally}: "
         f"{[k.launches for k in kernels]}")
 
     t0 = time.perf_counter()
     grid = phase_k(dev)
     torch.cuda.empty_cache()
     log(f"phase_k: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    state = phase_l(dev)["512x512 Q1 vdim 2 neo-Hookean"]
+    torch.cuda.empty_cache()
+    log(f"phase_l: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "fused_element_jacobian",
@@ -2750,13 +2897,29 @@ def main() -> int:
         "source": "mfem_ad_tpu_torch/csrc/grid_hess_mult.cuh",
         "replaces": "none: the JAX package's hess_mult "
                     "(mfem_ad_tpu/integrator.py:1212) is plain jnp",
-        "launches": grid["launches"],
+        "launches": c_apply,
         "max_rel_err": grid["err"],
         "ms": grid["ms"],
         "plain_ms": grid["plain_ms"],
         "eager_ms": grid["eager_ms"],
         "bound_ms": grid["bound_ms"],
         "bound_by": grid["bound_by"],
+    }, {
+        "name": "grid_hess_state",
+        "route": "cuda",
+        "source": "mfem_ad_tpu_torch/csrc/grid_hess_state.cuh + "
+                  "ad::HessianEntries from "
+                  "mfem_ad_tpu_torch/csrc/ad_jacobian.cuh",
+        "replaces": "none: the JAX package's hess_state "
+                    "(mfem_ad_tpu/integrator.py:1165) is vmapped "
+                    "jacfwd(grad), which XLA fuses",
+        "launches": c_state,
+        "max_rel_err": state["err"],
+        "ms": state["ms"],
+        "plain_ms": state["plain_ms"],
+        "eager_ms": state["eager_ms"],
+        "bound_ms": state["bound_ms"],
+        "bound_by": state["bound_by"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -57,6 +57,26 @@ struct Grid {
   int ai[ND], aj[ND];
 };
 
+// The grid of nx x ny elements of order p with node offsets offs[ND][2]
+// (x, y); false where the kernels cannot index it.
+template <int ND>
+inline bool make_grid(int nx, int ny, int p, const int* offs, Grid<ND>* g) {
+  if (nx <= 0 || ny <= 0 || p <= 0) return false;
+  g->nx = nx;
+  g->ny = ny;
+  g->p = p;
+  g->NX = nx * p + 1;
+  g->nds = static_cast<int64_t>(g->NX) * (static_cast<int64_t>(ny) * p + 1);
+  g->ne = static_cast<int64_t>(nx) * ny;
+  for (int d = 0; d < ND; ++d) {
+    g->ai[d] = offs[2 * d];
+    g->aj[d] = offs[2 * d + 1];
+    if (g->ai[d] < 0 || g->ai[d] > p || g->aj[d] < 0 || g->aj[d] > p)
+      return false;
+  }
+  return true;
+}
+
 #ifdef __CUDACC__
 
 template <typename T, int VDIM, int ND, int NQ, int SD>
@@ -179,21 +199,10 @@ cudaError_t launch(const void* v, const void* ess, const void* planes,
                    const void* B0, void* re, void* out, int nx, int ny,
                    int p, const int* offs, cudaStream_t stream) {
   static_assert(kElems * NQ <= 1024, "one thread per element point");
-  if (nx <= 0 || ny <= 0 || p <= 0) return cudaErrorInvalidValue;
   Grid<ND> g;
-  g.nx = nx;
-  g.ny = ny;
-  g.p = p;
-  g.NX = nx * p + 1;
-  g.nds = static_cast<int64_t>(g.NX) * (static_cast<int64_t>(ny) * p + 1);
-  g.ne = static_cast<int64_t>(nx) * ny;
-  if (g.nds * VDIM > 0x7fffffffLL * kDofThreads) return cudaErrorInvalidValue;
-  for (int d = 0; d < ND; ++d) {
-    g.ai[d] = offs[2 * d];
-    g.aj[d] = offs[2 * d + 1];
-    if (g.ai[d] < 0 || g.ai[d] > p || g.aj[d] < 0 || g.aj[d] > p)
-      return cudaErrorInvalidValue;
-  }
+  if (!make_grid(nx, ny, p, offs, &g) ||
+      g.nds * VDIM > 0x7fffffffLL * kDofThreads)
+    return cudaErrorInvalidValue;
   const int64_t blocks = (g.ne + kElems - 1) / kElems;
   element_pass<T, VDIM, ND, NQ, SD>
       <<<static_cast<unsigned>(blocks), kElems * NQ, 0, stream>>>(

@@ -57,6 +57,7 @@ from .ops import ad_jacobian as adj
 from .ops import blocked_jacobian as bj
 from .ops import fused_jacobian as fj
 from .ops import grid_hess_mult as ghm
+from .ops import grid_hess_state as ghs
 from .ops.energy_codegen import UnsupportedEnergy
 from .quadrature import default_ad_order, get_rule
 
@@ -900,14 +901,26 @@ class ADBlockIntegrator(nn.Module):
         [ne, nq, n, n] tensor, or with ``sym=True`` the packed ``SymHess``
         upper-triangle planes [n(n+1)/2, ne, nq].  For a vector integrand
         it is the Jacobian dF/dx, nonsymmetric in general, so it is never
-        packed: ``sym`` is ignored and the full tensor returned."""
+        packed: ``sym`` is ignored and the full tensor returned.  On a
+        CUDA tensor the grid-state route (``route_refusal("grid_state")``)
+        computes the packed state in one hand-written kernel
+        (``ops.grid_hess_state``)."""
+        if (sym and ublocks[0].is_cuda
+                and self.route_refusal("grid_state") is None):
+            return SymHess(ghs.grid_hess_state(
+                self.f, ublocks[0].contiguous(),
+                *self.grid_state_operands()), self.n_input)
+        return self._hess_state_eager(ublocks, fields, sym)
+
+    def _hess_state_eager(self, ublocks, fields=None, sym: bool = False):
+        """``hess_state``'s body in PyTorch operations, on any device."""
         x = self.x_qp(ublocks)
         p = self.eval_params(fields)
         w = self.tables["w"]
         if self.vector_fn:
             H = qpmap(jacfwd(self.f.function), x, p).to(x.dtype)
             return H * w[..., None, None]
-        if self.closed and callable(self.f.hessian_closed):
+        if self._closed_hessian():
             H = qpmap(self.f.hessian_closed, x, p)
         else:
             # jacfwd(grad) promotes f32 per-point ops that take a Python
@@ -1023,6 +1036,11 @@ class ADBlockIntegrator(nn.Module):
     def _tables_on_cuda(self) -> bool:
         return self.tables["w"].device.type == "cuda"
 
+    def _closed_hessian(self) -> bool:
+        """True where ``hess_state`` takes the energy's closed Hessian
+        rather than AD."""
+        return self.closed and callable(self.f.hessian_closed)
+
     def route_refusal(self, route: str, state=None) -> str | None:
         """Why the hand-written kernel of ``route`` cannot serve this
         integrator, or None where it can; every kernel route asks here.
@@ -1034,12 +1052,16 @@ class ADBlockIntegrator(nn.Module):
                        traces;
           "grid"       the grid Jacobian apply at the Newton state
                        ``state`` (``grad_mult`` and ``hess_mult``, on CUDA
-                       tensors).
+                       tensors);
+          "grid_state" the packed Newton state of a structured 2D H1 form
+                       (``hess_state(..., sym=True)`` on CUDA tensors): the
+                       nested-dual Hessian of the traced energy.
 
-        The element-Jacobian kernels take element-shared tables and static
-        parameters only, as the JAX package's kernel does; an energy is
-        traced once per energy object and parameter sizes."""
-        if route == "grid":
+        The element-Jacobian kernels and the grid-state kernel take
+        element-shared tables and static parameters only, as the JAX
+        package's kernel does; an energy is traced once per energy object
+        and parameter sizes."""
+        if route in ("grid", "grid_state"):
             meta = self._gridmeta[0]
             if len(self.spaces) != 1:
                 return f"a mixed form of {len(self.spaces)} spaces"
@@ -1055,7 +1077,7 @@ class ADBlockIntegrator(nn.Module):
             if "R" not in self._layout:
                 return ("B is element-varying (no uniform Jacobian, no "
                         "table R)")
-            if not isinstance(state, SymHess):
+            if route == "grid" and not isinstance(state, SymHess):
                 return ("the state is a full Hessian (a vector integrand's "
                         "dF/dx)")
             if self.dtype not in (torch.float32, torch.float64):
@@ -1063,6 +1085,30 @@ class ADBlockIntegrator(nn.Module):
             if self.nq > ghm.MAX_POINTS:
                 return (f"{self.nq} points per element (at most "
                         f"{ghm.MAX_POINTS})")
+            if route == "grid":
+                return None
+            t = self.tables
+            if self.vector_fn:
+                return ("a vector integrand (ADVectorFunction): its state "
+                        "is the full Jacobian of F, never packed")
+            if self.field_kinds:
+                return (f"runtime field parameters "
+                        f"({', '.join(self.field_kinds)}) are not kernel "
+                        "inputs")
+            varying = [k for k, v in t["static"].items() if v.shape[0] != 1]
+            varying += ["w"] if t["w"].shape[0] != 1 else []
+            if varying:
+                return ("element-varying parameters or weights "
+                        f"({', '.join(varying)})")
+            if self._closed_hessian():
+                return ("closed=True: hess_state takes the energy's closed "
+                        "Hessian, the kernel its AD Hessian only")
+            try:
+                adj.energy_code(self.f, bj.param_sizes(t["static"]))
+            except UnsupportedEnergy as e:
+                return f"the energy does not trace: {e}"
+            if not self._tables_on_cuda():
+                return "the grid-state kernel runs on CUDA tables only"
             return None
         if route not in ("kernel", "kernel_ad"):
             raise ValueError(f"no kernel route {route!r}")
@@ -1152,6 +1198,17 @@ class ADBlockIntegrator(nn.Module):
             nq, vdim, sd, vdim, nd)[:, 0, :, 0, :].permute(0, 2, 1)
             .contiguous())
         return B0, offs, int(nx), int(ny), int(p), vdim
+
+    def grid_state_operands(self):
+        """(B0, wq [nq], params name -> [nq, k], node offsets, nx, ny, p,
+        vdim): the operands of the grid-state kernel
+        (``ops.grid_hess_state``) after the energy and the dof vector,
+        where the grid-state route serves."""
+        t = self.tables
+        B0, offs, nx, ny, p, vdim = self.grid_operands()
+        return (B0, t["w"][0].contiguous(),
+                {k: v[0].contiguous() for k, v in t["static"].items()},
+                offs, nx, ny, p, vdim)
 
     def auto_route(self, fields=None) -> str:
         """The route ``element_jacobians(route="auto")`` takes."""

@@ -76,6 +76,19 @@ def load_library(vdim: int, nd: int, nq: int, sd: int):
         {"ghm_launch_f32": _ARGTYPES, "ghm_launch_f64": _ARGTYPES})
 
 
+def element_dofs(u, offs, nx: int, ny: int, p: int, vdim: int):
+    """The element dofs [vdim, nd, ne] of the dof vector ``u`` (byNODES)
+    on the structured grid: element e = ey*nx + ex, node d at offset
+    ``offs[d]`` (x, y) from the element's corner."""
+    NX, NY = nx * p + 1, ny * p + 1
+    dev = u.device
+    ex = torch.arange(nx, device=dev).repeat(ny)
+    ey = torch.arange(ny, device=dev).repeat_interleave(nx)
+    o = torch.as_tensor(np.asarray(offs, dtype=np.int64), device=dev)
+    dof = (ey[None] * p + o[:, 1, None]) * NX + ex[None] * p + o[:, 0, None]
+    return u.reshape(vdim, NY * NX)[:, dof]
+
+
 def grid_grad_mult_plain(v, ess, planes, B0, offs, nx: int, ny: int,
                          p: int, vdim: int):
     """Plain PyTorch version of the kernel.
@@ -97,13 +110,8 @@ def grid_grad_mult_plain(v, ess, planes, B0, offs, nx: int, ny: int,
     nq, nd, sd = B0.shape
     n, ne = vdim * sd, nx * ny
     NX, NY = nx * p + 1, ny * p + 1
-    dev = v.device
     u = v if ess is None else torch.where(ess, 0.0, v)
-    ex = torch.arange(nx, device=dev).repeat(ny)
-    ey = torch.arange(ny, device=dev).repeat_interleave(nx)
-    o = torch.as_tensor(np.asarray(offs, dtype=np.int64), device=dev)
-    dof = (ey[None] * p + o[:, 1, None]) * NX + ex[None] * p + o[:, 0, None]
-    ue = u.reshape(vdim, NY * NX)[:, dof]  # [vdim, nd, ne]
+    ue = element_dofs(u, offs, nx, ny, p, vdim)
     x = torch.einsum("qdk,cde->eqck", B0, ue).reshape(ne, nq, n)
     y = [torch.zeros_like(x[..., 0]) for _ in range(n)]
     k = 0
@@ -115,7 +123,7 @@ def grid_grad_mult_plain(v, ess, planes, B0, offs, nx: int, ny: int,
             k += 1
     y = torch.stack(y, dim=-1).reshape(ne, nq, vdim, sd)
     re = torch.einsum("qdk,eqck->cde", B0, y)  # the element buffer
-    out = torch.zeros((vdim, NY, NX), dtype=v.dtype, device=dev)
+    out = torch.zeros((vdim, NY, NX), dtype=v.dtype, device=v.device)
     for d in range(nd):  # the dof pass's order
         ai, aj = int(offs[d][0]), int(offs[d][1])
         out[:, aj:aj + (ny - 1) * p + 1:p, ai:ai + (nx - 1) * p + 1:p] += (

@@ -1138,8 +1138,11 @@ def _direction(form, x, b, fields, opts: NewtonOptions):
     lumped one (a latent that is not L2) as the GMG of its LDU
     preconditioner."""
     r = _residual(form, x, b, fields)
-    state = form.grad_state(x, fields)
     fp = getattr(opts.preconditioner, "fused_precond", None)
+    with profiling.phase("newton/linearize"):
+        state = form.grad_state(x, fields)
+        if fp is not None and opts.lin_solver in _KRYLOV:
+            M = fp.newton_precond(form, x, state, fields)
     if opts.lin_solver == "schur" and form.spaces[-1].fe_type != "L2":
         alpha = float(fields.get("alpha", 1.0))
         return lumped_schur_solve(form, state, r, opts, fp=fp, alpha=alpha)
@@ -1150,9 +1153,7 @@ def _direction(form, x, b, fields, opts: NewtonOptions):
         return dense_solve(form.assemble_dense(state), r), None
     if callable(opts.lin_solver):
         return opts.lin_solver(form, state, r), None
-    if fp is not None:
-        M = fp.newton_precond(form, x, state, fields)
-    else:
+    if fp is None:
         M = _make_precond(form, state, opts.preconditioner)
     mv = lambda v: form.grad_mult(state, v)  # noqa: E731
     ip = {"dot": getattr(form, "dot", None),
