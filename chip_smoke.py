@@ -171,6 +171,19 @@ main paths through their public entry points:
      writes and reads and the least f64 operations of the function: the
      lines of the traced closed entries where the energy has them), the
      plain version's and the eager body's device and CUDA-event times.
+  M. MFEM ex37 at the topopt-ex37 cell's size (``models.topopt.
+     build_ex37(8)``: 768x256 Q2 cells, the state's and the filter's
+     7-level hp-GMGs), f64: the grid-state kernel's launches in set-up
+     (the filter's levels without the latent field; the state's levels
+     carry the design field, which the route refuses) and on each of
+     them the kernel against the plain version and the state the GMG
+     holds; the state's levels linearized at a seeded design injected
+     down, then on every level of both hierarchies the grid apply on the
+     field-backed packed state against the plain version, bitwise equal
+     over two calls; the Q2 vdim 2 apply's device time beside its bound;
+     and the launches of both kernels in one design iteration
+     (``FilteredSiMPL.solve(1)``): the apply at least once per CG
+     iteration, the state never.
 
 Kernel and plain times in the kernels line are device time per call from
 torch.profiler (the kernel alone; every kernel of the plain version); the
@@ -180,7 +193,8 @@ Every phase checks its results and raises on failure (a rank that fails
 fails its spawn, and the script with it).  Each kernel's
 launch count is reset just before its main path (B for the full-W
 instantiation, C for the grid state and the grid apply, D2 for the AD
-one, E2 for the blocked one) and read just after.  The last line of output is a JSON object naming the device; the
+one, E2 for the blocked one, M for both grid kernels on ex37) and read
+just after.  The last line of output is a JSON object naming the device; the
 line before it lists the kernels with their launch counts, timings and
 bounds.  There is no CPU path: without a CUDA device the script exits
 with an error.
@@ -232,6 +246,7 @@ from mfem_ad_tpu_torch.models import (
     obstacle,
     poisson,
 )
+from mfem_ad_tpu_torch.models import topopt as topopt_model
 from mfem_ad_tpu_torch.multigrid import GMG, build_hierarchy
 from mfem_ad_tpu_torch import parallel
 from mfem_ad_tpu_torch.parallel import (
@@ -2612,6 +2627,127 @@ def phase_l(dev) -> dict:
     return rows
 
 
+EX37_REF = 8  # the topopt-ex37 cell's refinements: 768x256 Q2 cells
+
+
+def phase_m(dev) -> dict:
+    """The grid kernels on ex37's hierarchies at the cell's size (f64):
+    set-up's grid-state launches and each against its plain version;
+    the grid apply on the field-backed packed state of every level of
+    both GMGs against its plain version; the Q2 vdim 2 apply's time; the
+    launches of one design iteration."""
+    ghs.grid_hess_state.launches = 0
+    t0 = time.perf_counter()
+    pb = topopt_model.build_ex37(EX37_REF, alpha=10.0, device=dev)
+    torch.cuda.synchronize()
+    setup_state = ghs.grid_hess_state.launches
+    opt = pb.opt
+    log(f"M build_ex37({EX37_REF}): state {pb.state_space.ndof:,} dofs, "
+        f"filter {pb.filter_space.ndof:,}, latent {pb.latent_space.ndof:,}, "
+        f"levels {len(opt.state_gmg.forms)} + {len(opt.filter_gmg.forms)}, "
+        f"{time.perf_counter() - t0:.1f} s; grid-state launches "
+        f"{setup_state}")
+    routed = 0
+    for lvl, (form, st) in enumerate(zip(opt.filter_gmg.forms,
+                                         opt.filter_gmg.states)):
+        intg = form.integrators[0]
+        refusal = intg.route_refusal("grid_state")
+        if refusal is not None:
+            if lvl > 0:
+                raise AssertionError(f"M: the grid-state route refuses the "
+                                     f"filter's level {lvl}: {refusal}")
+            log(f"M filter level 0 state eager: {refusal}")
+            continue
+        routed += 1
+        ops = intg.grid_state_operands()
+        u = seeded(form.ndof, 1.0, 30 + lvl, torch.float64, dev)
+        P = ghs.grid_hess_state(intg.f, u, *ops)
+        err = rel_max(P, ghs.grid_hess_state_plain(intg.f, u, *ops))
+        held = rel_max(st[0].planes, P)
+        log(f"M filter level {lvl} ({form.ndof:,} dofs): grid state vs "
+            f"plain {err:.3e} max|H|, the GMG's state vs the kernel "
+            f"{held:.3e} (tol 1e-13)")
+        if err > 1e-13 or held > 1e-13:
+            raise AssertionError(f"M: the grid-state kernel disagrees on "
+                                 f"the filter's level {lvl}")
+    if setup_state != routed or routed < 1:
+        raise AssertionError(f"M: set-up launched the grid-state kernel "
+                             f"{setup_state} times for {routed} levels")
+    rho = torch.sigmoid(seeded(pb.filter_space.ndof, 2.0, 40,
+                               torch.float64, dev))
+    opt.refresh(rho)
+    worst = 0.0
+    for tag, gmg in (("state", opt.state_gmg), ("filter", opt.filter_gmg)):
+        for lvl, (form, st) in enumerate(zip(gmg.forms, gmg.states)):
+            intg = form.integrators[0]
+            refusal = intg.route_refusal("grid", st[0])
+            if refusal is not None:
+                raise AssertionError(f"M: the grid route refuses the "
+                                     f"{tag}'s level {lvl}: {refusal}")
+            v = seeded(form.ndof, 1.0, 50 + lvl, torch.float64, dev)
+            n0 = ghm.grid_grad_mult.launches
+            y = form.grad_mult(st, v)
+            again = torch.equal(y, form.grad_mult(st, v))
+            torch.cuda.synchronize()
+            n = ghm.grid_grad_mult.launches - n0
+            err = rel_max(y, ghm.grid_grad_mult_plain(
+                v, form.ess_mask, st[0].planes, *intg.grid_operands()))
+            worst = max(worst, err)
+            log(f"M {tag} level {lvl} Q{form.spaces[0].order} vdim "
+                f"{intg.vdim[0]} ({form.ndof:,} dofs, fields "
+                f"{sorted(intg.f.params) or 'none'}): grid apply vs plain "
+                f"{err:.3e} max|Jv| (tol 1e-13), bitwise equal over two "
+                f"calls: {again}, launches {n}")
+            if err > 1e-13 or not again or n != 2:
+                raise AssertionError(f"M: the grid apply disagrees on the "
+                                     f"{tag}'s level {lvl}")
+    form, st = opt.state_gmg.forms[0], opt.state_gmg.states[0]
+    intg = form.integrators[0]
+    v = seeded(form.ndof, 1.0, 60, torch.float64, dev)
+    ops = intg.grid_operands()
+
+    def kernel():
+        return form.grad_mult(st, v)
+
+    def plain():
+        return ghm.grid_grad_mult_plain(v, form.ess_mask, st[0].planes, *ops)
+
+    k_ms, p_ms = call_ms(kernel), call_ms(plain)
+    rows = device_profile(kernel, reps=20)
+    for name, t in rows:
+        log(f"M kernel device {t:.4f} ms  {name[:90]}")
+    k_dev = sum(t for k, t in rows if "ghm::" in k) or k_ms
+    p_dev = device_ms(plain, None, p_ms)
+    b_ms, b_by = grid_apply_bound(intg, torch.float64)
+    log(f"M grid_grad_mult 768x256 Q2 vdim 2 f64 (ex37's level 0): "
+        f"kernel device {k_dev:.4f} ms (events {k_ms:.4f}), plain device "
+        f"{p_dev:.4f} ms (events {p_ms:.4f}); bound {b_ms:.4f} ms "
+        f"({b_by}), kernel at {b_ms / k_dev:.1%} of it")
+    del v, ops
+    ghs.grid_hess_state.launches = 0
+    ghm.grid_grad_mult.launches = 0
+    t0 = time.perf_counter()
+    res = opt.solve(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    state, apply = ghs.grid_hess_state.launches, ghm.grid_grad_mult.launches
+    cg_its = res.cg_iterations[0] + sum(res.filter_cg_iterations[0])
+    log(f"M one design iteration: {wall:.2f} s, CG state "
+        f"{res.cg_iterations[0]}, filter {res.filter_cg_iterations[0]}; "
+        f"launches grid_grad_mult {apply}, grid_hess_state {state}")
+    if apply < cg_its:
+        raise AssertionError(f"M: the design iteration launched the grid "
+                             f"apply {apply} times for {cg_its} CG "
+                             "iterations")
+    if state != 0:
+        raise AssertionError(f"M: the design iteration launched the "
+                             f"grid-state kernel {state} times")
+    del pb, opt, res, st, form
+    return {"setup_state": setup_state, "apply": apply, "state": state,
+            "cg_iterations": cg_its, "err": worst, "ms": k_dev,
+            "plain_ms": p_dev, "bound_ms": b_ms, "bound_by": b_by}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2847,6 +2983,10 @@ def main() -> int:
     state = phase_l(dev)["512x512 Q1 vdim 2 neo-Hookean"]
     torch.cuda.empty_cache()
     log(f"phase_l: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ex37 = phase_m(dev)
+    torch.cuda.empty_cache()
+    log(f"phase_m: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "fused_element_jacobian",
@@ -2904,6 +3044,12 @@ def main() -> int:
         "eager_ms": grid["eager_ms"],
         "bound_ms": grid["bound_ms"],
         "bound_by": grid["bound_by"],
+        "topopt_launches": ex37["apply"],
+        "topopt_cg_iterations": ex37["cg_iterations"],
+        "topopt_max_rel_err": ex37["err"],
+        "topopt_q2_ms": ex37["ms"],
+        "topopt_q2_plain_ms": ex37["plain_ms"],
+        "topopt_q2_bound_ms": ex37["bound_ms"],
     }, {
         "name": "grid_hess_state",
         "route": "cuda",
@@ -2920,6 +3066,8 @@ def main() -> int:
         "eager_ms": state["eager_ms"],
         "bound_ms": state["bound_ms"],
         "bound_by": state["bound_by"],
+        "topopt_setup_launches": ex37["setup_state"],
+        "topopt_launches": ex37["state"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

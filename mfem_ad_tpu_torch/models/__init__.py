@@ -7,7 +7,8 @@ from . import (
     minimal_surface,
     obstacle,
     poisson,
+    topopt,
 )
 
 __all__ = ["poisson", "elasticity", "minimal_surface", "obstacle",
-           "gradient_obstacle"]
+           "gradient_obstacle", "topopt"]

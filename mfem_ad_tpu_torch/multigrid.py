@@ -174,7 +174,9 @@ class GMG:
 
     Args:
         forms: fine-to-coarse list of single-space forms on nested meshes.
-        fields: runtime fields for the Jacobian states (default none).
+        fields: runtime fields for the Jacobian states (default none): one
+            dict for every level, or a list of one dict per level where a
+            field lives on each level's own space (``inject_field``).
         x_levels: linearization points per level (default zeros).
         nu: pre/post smoothing steps.
         omega: Jacobi damping.
@@ -210,8 +212,7 @@ class GMG:
                     )
             self.factors.append(fac)
         if x_levels is None:
-            x_levels = [torch.zeros(f.ndof, dtype=f.dtype, device=f.device)
-                        for f in self.forms]
+            x_levels = self._zeros()
         self.states = [None] * len(self.forms)
         self.diags = [None] * len(self.forms)
         self.coarse_inv = None
@@ -221,17 +222,27 @@ class GMG:
         self.captures = self.replays = self.eager_calls = 0
         self._linearize(x_levels, fields)
 
+    def _zeros(self):
+        return [torch.zeros(f.ndof, dtype=f.dtype, device=f.device)
+                for f in self.forms]
+
     def _linearize(self, x_levels, fields, fine=None):
         """States and diagonals of every level at ``x_levels``, and the
         coarsest level's dense matrix (identity rows at essential dofs)
         and its inverse; level by level, each written into the tensors of
-        the last linearization.  ``fine``, a Newton state and its diagonal
-        from the caller, is copied in as level 0's instead."""
-        for lvl, (f, x) in enumerate(zip(self.forms, x_levels)):
+        the last linearization.  ``fields`` is one dict for every level or
+        a list of one per level.  ``fine``, a Newton state and its
+        diagonal from the caller, is copied in as level 0's instead."""
+        if not isinstance(fields, (list, tuple)):
+            fields = [fields] * len(self.forms)
+        elif len(fields) != len(self.forms):
+            raise ValueError(f"{len(fields)} field dicts for "
+                             f"{len(self.forms)} levels")
+        for lvl, (f, x, fl) in enumerate(zip(self.forms, x_levels, fields)):
             if lvl == 0 and fine is not None:
                 self.set_fine(*fine)
                 continue
-            s = f.grad_state(x, fields)
+            s = f.grad_state(x, fl)
             d = f.grad_diag(s)
             self.states[lvl] = _write(self.states[lvl], s, True)
             self.diags[lvl] = _write(self.diags[lvl], d, True)
@@ -276,16 +287,42 @@ class GMG:
             g = _down1d_sq(g, ax, self.factors[lvl])
         return torch.where(self.forms[lvl + 1].ess_mask, 0.0, g.reshape(-1))
 
-    def inject(self, lvl, xf):
+    def inject(self, lvl, xf, vdim: int | None = None):
         """Nodal injection fine level lvl -> coarse level lvl+1: the nested
         lattices share nodes at stride ``factor``, so subsampling is the
-        exact interpolant of the fine iterate on the coarse space."""
-        g = self._to_grid(lvl, xf)
+        exact interpolant of the fine iterate on the coarse space.
+        ``vdim`` (default the levels' own) lets a field of another number
+        of components on the same lattices take the same injection."""
+        g = xf.reshape((vdim or self.vdim,) + self.shapes[lvl])
         f = self.factors[lvl]
         sl = [slice(None)] * g.ndim
         for ax in self._axes(lvl):
             sl[ax] = slice(None, None, f)
         return g[tuple(sl)].reshape(-1)
+
+    def inject_down(self, x, vdim: int | None = None):
+        """``x`` on level 0's lattice and its injections on every coarser
+        level, fine to coarse (``inject``)."""
+        xs = [x]
+        for lvl in range(len(self.forms) - 1):
+            xs.append(self.inject(lvl, xs[-1], vdim))
+        return xs
+
+    def inject_field(self, name: str, x):
+        """Per-level runtime fields for ``set_fields``: ``{name: x}`` of a
+        scalar H1 field ``x`` on level 0's lattice (its own space of level
+        0's order, as the design of a SIMP state), and on each coarser
+        level its nodal interpolant on that level's lattice."""
+        return [{name: xl} for xl in self.inject_down(x, vdim=1)]
+
+    def set_fields(self, fields):
+        """Linearize every level anew, at zero, with new runtime fields
+        (one dict for every level or one per level, as ``inject_field``
+        makes them): a linear hierarchy whose coefficients change, such
+        as SIMP's stiffness at each design.  States, diagonals and the
+        coarse inverse are written into the tensors that a captured
+        V-cycle graph reads, so the graph stays valid."""
+        self._linearize(self._zeros(), fields)
 
     # -- shifted V-cycle and nonlinear refresh ---------------------------
     def shift_data(self, dshift):
@@ -329,10 +366,7 @@ class GMG:
         """``refresh``, with level 0 taken from ``fine`` where given."""
         if not self.nonlinear:
             return
-        xs = [x]
-        for lvl in range(len(self.forms) - 1):
-            xs.append(self.inject(lvl, xs[-1]))
-        self._linearize(xs, fields or {}, fine)
+        self._linearize(self.inject_down(x), fields or {}, fine)
 
     # -- V-cycle ---------------------------------------------------------
     def _op(self, lvl, x, sdata=None):
